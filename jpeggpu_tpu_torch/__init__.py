@@ -1,0 +1,54 @@
+"""jpeggpu_tpu_torch: baseline-JPEG decoding on an NVIDIA GPU with PyTorch.
+
+The PyTorch/CUDA port of the JAX package beside it: host-side marker
+parsing, table derivation and destuffing, then on the device the
+subsequence-parallel speculative Huffman decode with self-synchronisation,
+the DC prefix sums and the fused de-interleave + integer dequantise + IDCT.
+Plain tensor code is PyTorch; the three kernels of the decode path are CUDA
+C++ (``kernels/csrc``), built at first use. The package imports torch and
+numpy only.
+"""
+
+from .errors import (
+    IncompleteBitstream,
+    InternalError,
+    InvalidArgument,
+    InvalidJpeg,
+    JpegError,
+    NotSupported,
+    OutOfHostMemory,
+    Status,
+    get_status_string,
+)
+from .reader import JpegStream, parse
+
+__all__ = [
+    "IncompleteBitstream",
+    "InternalError",
+    "InvalidArgument",
+    "InvalidJpeg",
+    "JpegError",
+    "JpegStream",
+    "NotSupported",
+    "OutOfHostMemory",
+    "Status",
+    "Decoder",
+    "ImgInfo",
+    "decode",
+    "decode_rgb",
+    "get_status_string",
+    "parse",
+]
+
+
+def __getattr__(name):
+    # lazy: importing the API pulls in torch; keep host-only imports light
+    if name in ("Decoder", "ImgInfo", "decode", "decode_rgb", "is_css_444"):
+        from . import api
+
+        return getattr(api, name)
+    if name in ("golden", "encoder"):
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(name)

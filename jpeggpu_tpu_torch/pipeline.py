@@ -1,0 +1,249 @@
+"""Decode planning, host staging and the device pipeline.
+
+A :class:`DecodePlan` captures the static geometry of a parsed stream. The
+lane count is rounded up to a shape bucket; the padding is inert (lane
+validity is data-driven, see ``ops.huffman.make_ctx``). The device chain is
+
+  sync_states (K1 per round) -> symbol_offsets -> decode_write (K2)
+  -> undelta_dc_values -> idct_stream_to_plane (K3 per component) -> crop
+
+and runs eagerly on the device that holds the staged inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import constants as C
+from . import convert
+from .errors import OutOfHostMemory
+from .ops.dc import undelta_dc_values
+from .ops.huffman import ScanArrays, ScanConfig, decode_scan
+from .ops.idct import idct_stream_to_plane
+from .reader import JpegStream, Scan, num_mcus_in_segment, parse
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card, and raises where there is none; the CPU is
+    taken only when the caller asks for it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "jpeggpu_tpu_torch decodes on a CUDA device and none is "
+                "available; pass device='cpu' to run the plain versions")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _bucket(n: int, quantum: int = 256) -> int:
+    """Round up to a shape bucket: next multiple of `quantum` below
+    4*quantum, then multiples of 8*quantum."""
+    n = max(n, 1)
+    if n <= 4 * quantum:
+        return -(-n // quantum) * quantum
+    q = 8 * quantum
+    return -(-n // q) * q
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlanStatic:
+    """Hashable static geometry of one scan."""
+
+    cfg: ScanConfig
+    num_mcus_x: int
+    num_mcus_y: int
+    # per scan component: (component_idx, off_in_mcu, ss_eff_x, ss_eff_y,
+    #                      data_size_x, data_size_y, qtable_idx)
+    comps: Tuple[Tuple[int, int, int, int, int, int, int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanSignature:
+    scans: Tuple[ScanPlanStatic, ...]
+    # per component: (size_x, size_y)
+    comp_sizes: Tuple[Tuple[int, int], ...]
+
+
+@dataclasses.dataclass
+class DecodePlan:
+    signature: PlanSignature
+    stream: JpegStream
+
+
+def build_plan(stream: JpegStream) -> DecodePlan:
+    """Build the decode plan (static geometry) for a parsed stream."""
+    scans = []
+    for scan in stream.scans:
+        comps = []
+        for sc in scan.components:
+            comp = stream.components[sc.component_idx]
+            # a non-interleaved scan's MCU is one data unit (T.81 A.2.2)
+            ss_x = comp.ss_x if scan.interleaved else 1
+            ss_y = comp.ss_y if scan.interleaved else 1
+            comps.append((sc.component_idx, sc.off_in_mcu, ss_x, ss_y,
+                          sc.data_size_x, sc.data_size_y, comp.qtable_idx))
+        comp_groups = []
+        end = 0
+        for sc in scan.components:
+            end += sc.du_per_mcu
+            comp_groups.append((end,
+                                sc.dc_table_id * C.HUFF_COUNT + C.HUFF_DC,
+                                sc.ac_table_id * C.HUFF_COUNT + C.HUFF_AC))
+        used_slots = {g[1] for g in comp_groups} | {g[2] for g in comp_groups}
+        cfg = ScanConfig(
+            lanes=_bucket(scan.num_subsequences),
+            num_segments=scan.num_segments,
+            du_per_mcu=scan.num_data_units_in_mcu,
+            mcus_per_seg=num_mcus_in_segment(stream, scan),
+            total_mcus=scan.num_mcus,
+            comp_groups=tuple(comp_groups),
+            fast_tables=not any(scan.huff_tables[s].saturated
+                                for s in used_slots),
+        )
+        scans.append(ScanPlanStatic(
+            cfg=cfg, num_mcus_x=scan.num_mcus_x, num_mcus_y=scan.num_mcus_y,
+            comps=tuple(comps)))
+    sig = PlanSignature(
+        scans=tuple(scans),
+        comp_sizes=tuple((c.size_x, c.size_y) for c in stream.components),
+    )
+    return DecodePlan(signature=sig, stream=stream)
+
+
+# --- host -> device staging -------------------------------------------------
+
+def pack_huff_tables(scan: Scan) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    maxcode = np.full((C.MAX_HUFF_PER_SCAN, 16), -1, np.int32)
+    vsm = np.zeros((C.MAX_HUFF_PER_SCAN, 16), np.int32)
+    huffval = np.zeros((C.MAX_HUFF_PER_SCAN, 256), np.int32)
+    for i, t in enumerate(scan.huff_tables):
+        maxcode[i] = t.maxcode
+        vsm[i] = t.valptr_sub_mincode
+        huffval[i] = t.huffval
+    return maxcode, vsm, huffval.reshape(-1)
+
+
+def _destuff_host(buf: np.ndarray, scan: Scan, lanes: int) -> np.ndarray:
+    """Host destuff -> big-endian uint32 words, padded to `lanes`
+    subsequences: the native C++ destuffer where the machine has a
+    compiler, the numpy one otherwise."""
+    from . import native
+    from .golden import destuff_scan_host
+
+    full = native.destuff_words(buf[scan.begin:scan.end], scan.segments[:, 0],
+                                scan.num_subsequences, lanes, scan.seg_raw)
+    if full is not None:
+        return full
+    out = destuff_scan_host(buf, scan)
+    words = np.frombuffer(out.tobytes(), dtype=">u4").astype(np.uint32)
+    full = np.zeros(lanes * C.CHUNK_SIZE_WORDS, np.uint32)
+    full[:len(words)] = words
+    return full
+
+
+def build_scan_inputs(buf: np.ndarray, scan: Scan,
+                      sp: ScanPlanStatic) -> Dict[str, np.ndarray]:
+    """Numpy arrays for one scan, padded to the plan's bucket shapes: the
+    destuffed word stream, the per-lane segment tables and the packed
+    Huffman tables, staged once per image."""
+    lanes = sp.cfg.lanes
+    counts = scan.segments[:, 1]
+    seg_of = np.repeat(np.arange(scan.num_segments, dtype=np.int32), counts)
+    seg_of_subseq = np.full(lanes, max(scan.num_segments - 1, 0), np.int32)
+    seg_of_subseq[:len(seg_of)] = seg_of
+    seg_first_lane = np.zeros(lanes, np.int32)
+    seg_num_subseq = np.zeros(lanes, np.int32)
+    seg_first_lane[:len(seg_of)] = scan.segments[seg_of, 0]
+    seg_num_subseq[:len(seg_of)] = scan.segments[seg_of, 1]
+    if len(seg_of) < lanes and scan.num_segments:
+        seg_first_lane[len(seg_of):] = scan.segments[-1, 0]
+        seg_num_subseq[len(seg_of):] = scan.segments[-1, 1]
+    maxcode, vsm, huffval = pack_huff_tables(scan)
+    return dict(
+        words=_destuff_host(buf, scan, lanes),
+        seg_of_subseq=seg_of_subseq,
+        seg_first_lane=seg_first_lane,
+        seg_num_subseq=seg_num_subseq,
+        maxcode=maxcode,
+        vsm=vsm,
+        huffval=huffval,
+    )
+
+
+def build_inputs(data: bytes | np.ndarray, plan: DecodePlan) -> Dict:
+    buf = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
+        else np.asarray(data, np.uint8)
+    try:
+        scans = [build_scan_inputs(buf, scan, sp)
+                 for scan, sp in zip(plan.stream.scans, plan.signature.scans)]
+    except MemoryError as exc:
+        raise OutOfHostMemory(
+            f"host staging buffers exceed available memory: {exc}") from exc
+    return dict(scans=scans, qtables=plan.stream.qtables.astype(np.int32))
+
+
+def stage_inputs(inputs: Dict, device: torch.device) -> Dict:
+    """Copy the host inputs of :func:`build_inputs` to ``device``."""
+    return dict(
+        scans=[convert.scan_arrays(s, device) for s in inputs["scans"]],
+        qtables=torch.from_numpy(inputs["qtables"]).to(device),
+    )
+
+
+def plan_buffer_size(plan: DecodePlan) -> int:
+    """Device memory one decode of this plan allocates, in bytes: the sum
+    of the tensors the pipeline creates (staged inputs, decode context,
+    two generations of sync states, write inputs, the coefficient stream,
+    the DC vector and the padded output planes). Knowable from the header
+    alone."""
+    total = 4 * C.MAX_COMPONENTS * 64  # qtables
+    for sp in plan.signature.scans:
+        cfg = sp.cfg
+        lane_i32 = 4 * cfg.lanes
+        tables = 4 * (2 * 128 + 2048 + 128 + 2 * cfg.du_per_mcu + 64)
+        staged = (C.CHUNK_SIZE_WORDS + 3) * lane_i32
+        ctx = 4 * lane_i32 + 2 * cfg.lanes
+        sync = (4 + 4 + 3) * lane_i32
+        write = 3 * lane_i32 + cfg.lanes
+        total_du = cfg.total_mcus * cfg.du_per_mcu
+        coeffs = 2 * cfg.total_positions + 2 * total_du
+        planes = sum(c[4] * c[5] for c in sp.comps)
+        total += tables + staged + ctx + sync + write + coeffs + planes
+    return total
+
+
+# --- the device pipeline ----------------------------------------------------
+
+def decode_pipeline(signature: PlanSignature, scan_arrays: List[ScanArrays],
+                    qtables: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Full-image decode on the device of the staged inputs. Returns the
+    per-component uint8 planes, cropped to component size."""
+    pix: Dict[int, torch.Tensor] = {}
+    for sp, arrs in zip(signature.scans, scan_arrays):
+        cfg = sp.cfg
+        coeffs = decode_scan(cfg, arrs)
+        comp_slots = tuple((c[1], c[2] * c[3]) for c in sp.comps)
+        # DC un-delta as a side vector: the stream -> plane kernel takes
+        # slot 0 from it, so the DC stage never rewrites the stream
+        dcv = undelta_dc_values(cfg, comp_slots, coeffs)
+        for c in sp.comps:
+            pix[c[0]] = idct_stream_to_plane(
+                coeffs, qtables[c[6]], sp.num_mcus_x, sp.num_mcus_y,
+                cfg.du_per_mcu, c[1], c[2], c[3], dcv)
+    return tuple(pix[ci][:size_y, :size_x]
+                 for ci, (size_x, size_y) in enumerate(signature.comp_sizes))
+
+
+def decode_jpeg_device(data: bytes, *, device=None,
+                       plan: Optional[DecodePlan] = None) -> List[np.ndarray]:
+    """One-shot decode of a JPEG; ``device=None`` is the card."""
+    dev = resolve_device(device)
+    if plan is None:
+        plan = build_plan(parse(data))
+    staged = stage_inputs(build_inputs(data, plan), dev)
+    out = decode_pipeline(plan.signature, staged["scans"], staged["qtables"])
+    return [p.contiguous().cpu().numpy() for p in out]

@@ -1,0 +1,222 @@
+"""PyTorch port, entropy decode: kernels K1 (subseq_pass, through
+sync_states) and K2 (decode_write) in their plain versions on the CPU.
+
+(a) Against the JAX package: the same staged inputs, handed over through
+``convert.from_reference_inputs``, give the same converged states and the
+same coefficient stream. The JAX side runs its plain XLA reference (what
+its own tests run on the CPU), compiled once per module.
+(b) Against the numpy golden decoder, over a matrix of stream shapes:
+states, coefficients, DC values and planes.
+
+Tolerance: none. The pipeline is integer end to end, so every comparison is
+``np.array_equal``.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import jpeggpu_tpu_torch as T
+from jpeggpu_tpu_torch import convert, golden, pipeline
+from jpeggpu_tpu_torch.encoder import EncodeSpec, encode
+from jpeggpu_tpu_torch.ops import dc as tdc
+from jpeggpu_tpu_torch.ops import huffman as TH
+
+_S420 = [(2, 2), (1, 1), (1, 1)]
+
+
+def _saturated():
+    counts1 = np.zeros(16, np.uint8)
+    counts1[0] = 2  # two 1-bit codes: the code space saturates at length 1
+    overrides = {
+        (0, 0): (counts1, np.array([0, 1], np.uint8)),
+        (1, 0): (counts1, np.array([0x00, 0x11], np.uint8)),
+    }
+    img = np.full((24, 32), 127, np.uint8)
+    return encode(img, EncodeSpec(huff_overrides=overrides, quality=50))
+
+
+def _case_data(name, image):
+    small = image[:24, :40]
+    four = [small[..., 0], small[..., 1], small[..., 2], 255 - small[..., 0]]
+    makers = {
+        "420_rst2": lambda: encode(small, EncodeSpec(
+            sampling=_S420, restart_interval=2)),
+        "420_rst7": lambda: encode(small, EncodeSpec(
+            sampling=_S420, restart_interval=7)),
+        "444": lambda: encode(small, EncodeSpec(sampling=[(1, 1)] * 3)),
+        "422": lambda: encode(small, EncodeSpec(
+            sampling=[(2, 1), (1, 1), (1, 1)])),
+        "gray": lambda: encode(small[..., 0]),
+        "non_interleaved": lambda: encode(small, EncodeSpec(
+            sampling=_S420, interleaved=False)),
+        "four_component": lambda: encode(four, EncodeSpec(
+            sampling=[(1, 1)] * 4)),
+        "tiny": lambda: encode(np.full((1, 1), 128, np.uint8)),
+        "saturated_table": _saturated,
+        "flat": lambda: encode(np.full((64, 96, 3), 200, np.uint8),
+                               EncodeSpec(sampling=_S420)),
+        "per_scan_dht": lambda: encode(small, EncodeSpec(
+            sampling=[(1, 1)] * 3, interleaved=False,
+            table_ids=[(0, 0)] * 3, dht_per_scan=True)),
+    }
+    return makers[name]()
+
+
+CASES = ["420_rst2", "420_rst7", "444", "422", "gray", "non_interleaved",
+         "four_component", "tiny", "saturated_table", "flat", "per_scan_dht"]
+
+
+@pytest.fixture(scope="module")
+def decoded(test_image):
+    """Decode each case once on the CPU, keeping every intermediate."""
+    cache = {}
+
+    def get(name):
+        if name in cache:
+            return cache[name]
+        data = _case_data(name, test_image)
+        plan = pipeline.build_plan(T.parse(data))
+        staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan),
+                                       torch.device("cpu"))
+        scans = []
+        for sp, arrs in zip(plan.signature.scans, staged["scans"]):
+            cfg = sp.cfg
+            ctx = TH.make_ctx(cfg, arrs)
+            p, c, z, n = TH.sync_states(cfg, arrs, ctx)
+            n_off = TH.symbol_offsets(cfg, arrs, n)
+            coeffs = TH.decode_write(cfg, arrs, ctx, p, c, z, n_off)
+            comp_slots = tuple((k[1], k[2] * k[3]) for k in sp.comps)
+            scans.append(dict(
+                states=torch.stack([p, c, z, n], dim=1).numpy(),
+                coeffs=coeffs.numpy(),
+                dcv=tdc.undelta_dc_values(cfg, comp_slots, coeffs).numpy()))
+        planes = pipeline.decode_pipeline(plan.signature, staged["scans"],
+                                          staged["qtables"])
+        cache[name] = dict(data=data, plan=plan, scans=scans,
+                           planes=[x.numpy() for x in planes])
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_states_match_sequential(decoded, name):
+    """sync_states (every round is K1's plain version) converges to the
+    states of a sequential decode at every subsequence boundary."""
+    d = decoded(name)
+    buf = np.frombuffer(d["data"], np.uint8)
+    stream = d["plan"].stream
+    if name == "saturated_table":
+        assert not d["plan"].signature.scans[0].cfg.fast_tables
+    for scan, got in zip(stream.scans, d["scans"]):
+        expect = golden.sequential_boundary_states(stream, scan, buf)
+        assert np.array_equal(got["states"][:scan.num_subsequences], expect)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_coefficients_match_golden(decoded, name):
+    """decode_write (K2's plain version) fills the coefficient stream the
+    golden decoder fills."""
+    d = decoded(name)
+    buf = np.frombuffer(d["data"], np.uint8)
+    stream = d["plan"].stream
+    for scan, got in zip(stream.scans, d["scans"]):
+        expect = golden.decode_scan_coefficients(stream, scan, buf)
+        assert got["coeffs"].dtype == np.int16
+        assert np.array_equal(got["coeffs"], expect)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_dc_values_match_golden(decoded, name):
+    d = decoded(name)
+    buf = np.frombuffer(d["data"], np.uint8)
+    stream = d["plan"].stream
+    for scan, got in zip(stream.scans, d["scans"]):
+        expect = golden.decode_scan_coefficients(stream, scan, buf)
+        golden.undelta_dc(stream, scan, expect)
+        assert np.array_equal(got["dcv"], expect[::64])
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_planes_match_golden(decoded, name):
+    d = decoded(name)
+    expect = golden.decode(d["data"])
+    assert len(expect) == len(d["planes"])
+    for a, b in zip(expect, d["planes"]):
+        assert b.dtype == np.uint8 and a.shape == b.shape
+        assert np.array_equal(a, b)
+
+
+# --- against the JAX package ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_reference(test_image):
+    """States and coefficients of the JAX package for 420_rst2, through its
+    plain XLA reference: full-width Jacobi sync (the mode the port runs)
+    and the scatter write. One executable, compiled once."""
+    from jpeggpu_tpu.encoder import EncodeSpec as JSpec
+    from jpeggpu_tpu.encoder import encode as jencode
+    from jpeggpu_tpu.ops import huffman as JH
+    from jpeggpu_tpu.pipeline import build_inputs, build_plan
+    from jpeggpu_tpu.reader import parse
+
+    data = jencode(test_image, JSpec(sampling=_S420, restart_interval=2))
+    plan = build_plan(parse(data))
+    inputs = build_inputs(data, plan)
+    cfg = plan.signature.scans[0].cfg
+    inp = inputs["scans"][0]
+
+    def f(inp):
+        arrs = JH.ScanArrays(
+            words=inp["words"], seg_of_subseq=inp["seg_of_subseq"],
+            seg_first_lane=inp["seg_first_lane"],
+            seg_num_subseq=inp["seg_num_subseq"], maxcode=inp["maxcode"],
+            vsm=inp["vsm"], huffval=inp["huffval"])
+        ctx = JH.make_ctx(cfg, arrs)
+        p, c, z, n = JH.sync_states(cfg, arrs, ctx, frontier_width=0)
+        n_off = JH.symbol_offsets(cfg, arrs, n)
+        coeffs = JH.decode_write(cfg, arrs, ctx, p, c, z, n_off)
+        return p, c, z, n, n_off, coeffs
+
+    out = [np.asarray(x) for x in jax.jit(f).lower(inp).compile()(inp)]
+    geometry = {k: getattr(cfg, k) for k in convert.GEOMETRY_FIELDS}
+    return dict(data=data, geometry=geometry, inp=inp,
+                qtables=inputs["qtables"], out=out)
+
+
+@pytest.fixture(scope="module")
+def port_on_reference_inputs(jax_reference):
+    r = jax_reference
+    cfg, arrs, _ = convert.from_reference_inputs(
+        r["geometry"], r["inp"], r["qtables"], "cpu")
+    ctx = TH.make_ctx(cfg, arrs)
+    p, c, z, n = TH.sync_states(cfg, arrs, ctx)
+    n_off = TH.symbol_offsets(cfg, arrs, n)
+    coeffs = TH.decode_write(cfg, arrs, ctx, p, c, z, n_off)
+    return [x.numpy() for x in (p, c, z, n, n_off, coeffs)]
+
+
+@pytest.mark.parametrize("idx,what", list(enumerate("pczn")))
+def test_sync_states_match_jax(jax_reference, port_on_reference_inputs, idx,
+                               what):
+    got, expect = port_on_reference_inputs[idx], jax_reference["out"][idx]
+    assert got.dtype == expect.dtype == np.int32
+    assert np.array_equal(got, expect), what
+
+
+def test_symbol_offsets_match_jax(jax_reference, port_on_reference_inputs):
+    assert np.array_equal(port_on_reference_inputs[4],
+                          jax_reference["out"][4])
+
+
+def test_decode_scan_matches_jax(jax_reference, port_on_reference_inputs):
+    got, expect = port_on_reference_inputs[5], jax_reference["out"][5]
+    assert got.dtype == expect.dtype == np.int16
+    assert np.array_equal(got, expect)
+    # and decode_scan, the composition the pipeline calls
+    r = jax_reference
+    cfg, arrs, _ = convert.from_reference_inputs(
+        r["geometry"], r["inp"], r["qtables"], "cpu")
+    assert np.array_equal(TH.decode_scan(cfg, arrs).numpy(), expect)
