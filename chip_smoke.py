@@ -7,30 +7,39 @@ Drives `jpeggpu_tpu_torch` end to end and fails (non-zero exit, no result
 line) on the first phase that fails; nothing is caught and carried past:
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. builds the three CUDA kernels from `jpeggpu_tpu_torch/kernels/csrc` and
+2. builds the six CUDA kernels from `jpeggpu_tpu_torch/kernels/csrc` and
    the native host destuffer (the run fails where that one is missing, so
    that every host time below is the native destuffer's);
 3. small streams made with the port's encoder from a numpy seed (4:2:0 with
    restarts, 4:4:4, gray, non-interleaved, a saturated Huffman table):
-   decode on the card == the port's numpy golden decoder, exactly;
+   decode on the card == the port's numpy golden decoder, exactly, on the
+   default path and again under a plan built with
+   `Tuning(write_mode="tiles", tile_mode="super")` (the records write
+   path), there also a flat low-entropy image, whose lanes drain through
+   the leftover scatter, and a garbage scan body;
 4. a 4032x3024 (12 MP) interleaved 4:2:0 JPEG, restart interval 252,
    quality 90, made from a seed: a strip of MCU rows is encoded with the
    numpy encoder and its restart segments are repeated to 189 rows. At
    these shapes each kernel's wrapper is held against its plain PyTorch
    version on the same CUDA tensors (all exact, max_abs_err must be 0): K1
    on the blind and on the shifted sync round, K2 on the whole coefficient
-   stream, K3 on all three components. The strip itself is checked against
+   stream, K3 on all three components, and the records write path's K4
+   (from the converged states), K5 (from the preparation of K4's records)
+   and K6 (from K5's supertiles). The strip itself is checked against
    the golden decoder, and `jpeggpu_tpu_torch.decode` of the 12 MP image
    against the plain path (the same pipeline on CPU tensors);
-5. the main path, `jpeggpu_tpu_torch.decode(data)`, with every launch count
-   set to 0 just before and read just after: each kernel must have been
-   launched;
+5. the main paths, each with every launch count set to 0 just before and
+   read just after: `jpeggpu_tpu_torch.decode(data)` must launch K1, K2
+   and K3 and none of K4-K6; `decode_jpeg_device(data, plan=build_plan(
+   parse(data), tuning=Tuning(write_mode="tiles")))`, and a `Decoder`
+   under `set_default_tuning`, must launch K1, K4, K5, K6 and K3 and not
+   K2, and give the same planes;
 6. times, each beside its bound. Every kernel is timed twice with the
    host's enqueue cost off the clock (launches queued behind a spinning
    kernel): with L2 warm (CUDA events around 20 identical launches, median
    of 5 such runs) and with L2 cold (128 MB written between launches, each
    launch between its own pair of events, median of 20). `ms` in the
-   `kernels` line is the cold time for K2 and K3, whose inputs in a decode
+   `kernels` line is the cold time for K2-K6, whose inputs in a decode
    were last touched tens of MB earlier, and the warm time for K1, whose
    rounds follow each other over the same 2.6 MB of words; both times are
    in the line. The kernels' times inside a real decode (the profiler's)
@@ -67,6 +76,7 @@ from jpeggpu_tpu_torch.encoder import EncodeSpec, encode
 from jpeggpu_tpu_torch.ops import dc as DC
 from jpeggpu_tpu_torch.ops import huffman as H
 from jpeggpu_tpu_torch.ops import idct as I
+from jpeggpu_tpu_torch.ops import write as W
 
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
@@ -81,6 +91,15 @@ K2_OPS_PER_SYMBOL = 60
 # operations per 8 values, dequantise and wrap 3, level shift, clamp and
 # pack 6
 K3_OPS_PER_PIXEL = 25
+# K4 is K2 with the store address replaced by the record packing: the same
+# count. K5, from kernels/csrc/supertiles.cu: unpack, gate, address and add
+# per record 10, zero and pack per output cell 2. K6, from
+# kernels/csrc/expand_supertiles.cu: per output cell one add per matching
+# supertile row and the pack, 3, plus the window walk per 8 cells
+K5_OPS_PER_RECORD, K5_OPS_PER_CELL = 10, 2
+K6_OPS_PER_CELL = 4
+
+TILES = T.Tuning(write_mode="tiles", tile_mode="super")
 
 S420 = [(2, 2), (1, 1), (1, 1)]
 FULL_W, FULL_H, QUALITY = 4032, 3024, 90  # restart interval: one MCU row
@@ -263,24 +282,74 @@ def phase_environment(dev: torch.device) -> str:
 
 
 def phase_build(dev: torch.device) -> None:
-    for fn in ("jpeggpu_subseq_pass", "jpeggpu_decode_write",
-               "jpeggpu_idct_stream_to_plane"):
+    built = ("jpeggpu_subseq_pass", "jpeggpu_decode_write",
+             "jpeggpu_idct_stream_to_plane", "jpeggpu_emit_pass",
+             "jpeggpu_supertiles", "jpeggpu_expand_supertiles")
+    for fn in built:
         kernels.get(fn)
     for entry in kernels.build_log:
         for line in entry.splitlines():
             if line.startswith("---") or "registers" in line or "error" in line:
                 log(f"  {line.strip()}")
-    log(f"set-up: built 3 kernels with nvcc in {kernels.build_seconds:.1f} s")
+    log(f"set-up: built {len(built)} kernels with nvcc, all compilers "
+        f"started together, in {kernels.build_seconds:.1f} s")
     if native.get_lib() is None:
         raise AssertionError("the native host destuffer did not build: no "
                              "C++ compiler on this machine")
     log("host destuffer: native C++ (jpeggpu_tpu_torch/native/destuff.cpp)")
 
 
+def leftover_streams(seed: int):
+    """Streams for the records write path's leftover route: a flat gray
+    image (about 3 bits per data unit, so a subsequence spans more data
+    units than a supertile holds) and a random scan body behind a valid
+    header."""
+    flat = encode(np.full((128, 136), 130, np.uint8), EncodeSpec(quality=50))
+    data = encode(synthetic_image(45, 67, seed, sigma=6.0)[..., 0],
+                  EncodeSpec(restart_interval=3))
+    scan = T.parse(data).scans[0]
+    body = np.random.default_rng(seed + 1).integers(
+        0, 255, scan.end - scan.begin, dtype=np.uint8)
+    body[body == 0xFF] = 0x7F
+    garbled = data[:scan.begin] + body.tobytes() + data[scan.end:]
+    return [("flat_gray_q50", flat), ("garbage_body", garbled)]
+
+
+def decode_tiles(data: bytes, dev: torch.device, tuning=TILES):
+    """One decode through the records write path."""
+    plan = pipeline.build_plan(T.parse(data), tuning=tuning)
+    return pipeline.decode_jpeg_device(data, device=dev, plan=plan)
+
+
 def phase_small_streams(dev: torch.device, seed: int) -> None:
-    for name, data in small_streams(seed):
+    streams = small_streams(seed)
+    for name, data in streams:
         check_equal_numpy(name, T.decode(data, device=dev), golden.decode(data))
         log(f"small stream {name}: decode on {dev.type} == golden")
+    for name, data in streams + leftover_streams(seed):
+        expect = golden.decode(data)
+        check_equal_numpy(name, decode_tiles(data, dev), expect)
+        log(f"small stream {name}: decode on {dev.type} through the records "
+            f"write path == golden, {W.scatter_leftover.lanes} leftover "
+            f"lane(s) in the last scan")
+        if name == "flat_gray_q50" and not W.scatter_leftover.lanes:
+            raise AssertionError("the flat image took no leftover lane")
+    # geometry overrides: a supertile of 512 rows needs 128 KB of dynamic
+    # shared memory in K5, a window of 3 and groups of 128 data units
+    name, data = leftover_streams(seed)[0]
+    wide = T.Tuning(write_mode="tiles", tile_mode="super", super_d=512,
+                    super_g=2, super_w=3, group_du=128)
+    check_equal_numpy(name, decode_tiles(data, dev, wide), golden.decode(data))
+    log(f"small stream {name} with super_d=512, super_g=2, super_w=3, "
+        f"group_du=128: == golden, {W.scatter_leftover.lanes} leftover lane(s)")
+    name, data = streams[-1]
+    trimmed = T.Tuning(write_mode="tiles", tile_mode="super", s_trim=128)
+    check_equal_numpy(name, decode_tiles(data, dev, trimmed),
+                      golden.decode(data))
+    log(f"small stream {name} with s_trim=128: == golden, "
+        f"{W.scatter_leftover.lanes} leftover lane(s)")
+    if not W.scatter_leftover.lanes:
+        raise AssertionError("s_trim=128 sent no lane to the leftover scatter")
 
 
 def phase_kernels(dev: torch.device, data: bytes, card: str):
@@ -415,28 +484,235 @@ def phase_kernels(dev: torch.device, data: bytes, card: str):
             ms=cold_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, call_ms=call_ms, ms_warm_l2=warm_ms,
             ms_cold_l2=cold_ms, slot=comp[1]))
+
+    entries += records_path_kernels(dev, card, plan, arrs, ctx,
+                                    (p, c, z, n_off), coeffs, symbols,
+                                    nbytes(arrs.words, *tables) + lane_in)
     return entries
+
+
+def host_ms(fn, dev: torch.device, reps: int = 7):
+    """Median host-clock time of `fn` ending in a synchronise, in ms, and
+    its last result: for stages that read from the device themselves and
+    so cannot be queued behind a spinning kernel."""
+    times = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
+                         decode_in_bytes):
+    """K4, K5 and K6 at the 12 MP shapes, each fed by the real stage before
+    it and held against its plain version; then the whole records write
+    stage against K2's stream."""
+    tcfg = pipeline.build_plan(plan.stream, tuning=TILES).signature.scans[0].cfg
+    lanes, G, super_d = tcfg.lanes, tcfg.super_g, tcfg.super_d
+    entries = []
+
+    def measure(label, launch, plain, compare):
+        got = launch()
+        t0 = time.perf_counter()
+        ref = plain()
+        sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = compare(got, ref)
+        del ref
+        warm_ms, call_ms = time_ms(launch, dev)
+        cold_ms = time_cold_ms(launch, dev)
+        log(f"{label}: max_abs_err {err}, {warm_ms:.4f} ms on the device "
+            f"with L2 warm, {cold_ms:.4f} ms cold ({call_ms:.4f} ms a single "
+            f"call), plain {plain_ms:.1f} ms  [{card}]")
+        if err:
+            raise AssertionError(f"{label} differs from its plain version")
+        return got, dict(max_abs_err=err, ms=cold_ms, plain_ms=plain_ms,
+                         library_ms=None, call_ms=call_ms, ms_warm_l2=warm_ms,
+                         ms_cold_l2=cold_ms)
+
+    # K4: the kernel leaves the slots at and past m[lane] unwritten, the
+    # plain version fills them with the inert record: compare gated
+    def gated(pair):
+        rec, m = pair
+        slot = torch.arange(rec.shape[0], dtype=torch.int32,
+                            device=dev)[:, None]
+        return torch.where(slot < m[None, :], rec, H._REC_INERT)
+
+    (rec, m), timing = measure(
+        "K4 decode_write_emit",
+        lambda: H.decode_write_emit(tcfg, arrs, ctx, *states),
+        lambda: H.decode_write_emit_plain(tcfg, arrs, ctx, *states),
+        lambda got, ref: max(max_abs_err(got[1], ref[1]),
+                             max_abs_err(gated(got), ref[0])))
+    records = int(m.sum())
+    log(f"K4 emitted {records} records ({symbols} symbols counted from the "
+        f"stream), at most {int(m.max())} in a lane, buffer {tuple(rec.shape)} "
+        f"= {nbytes(rec) / 1e6:.1f} MB left unfilled past each lane's count")
+    b_ms, b_by = bound(decode_in_bytes + 2 * 4 * lanes + 4 * records
+                       + nbytes(m), records * K2_OPS_PER_SYMBOL)
+    entries.append(dict(
+        name="decode_write_emit", route="cuda",
+        source="jpeggpu_tpu_torch/kernels/csrc/emit_pass.cu",
+        replaces="jpeggpu_tpu/ops/huffman_pallas.py:374", bound_ms=b_ms,
+        bound_by=b_by, records=records, **timing))
+
+    # K5, from the preparation of K4's records
+    pos0 = arrs.seg_of_subseq * tcfg.positions_per_seg + states[3]
+    prep_ms, prep = host_ms(lambda: W.supertile_records(
+        rec, m, pos0 >> 6, pos0, tcfg.total_positions, G, tcfg.super_w,
+        tcfg.tuning.s_trim, tcfg.group_du, super_d), dev)
+    val_rows, pk_rows, mmax_st, base, q, leftover, n_groups, win = prep
+    n_st = val_rows.shape[0]
+    log(f"records path geometry: super_g {G}, super_d {super_d}, group_du "
+        f"{tcfg.group_du}, super_w {tcfg.super_w} (used {win}), s_trim "
+        f"{tcfg.tuning.s_trim}, {n_st} supertiles, {n_groups} groups, "
+        f"{int(leftover.sum())} leftover lane(s); preparation "
+        f"{prep_ms:.3f} ms on the host clock  [{card}]")
+    stiles, timing = measure(
+        "K5 supertiles_from_records",
+        lambda: W.supertiles_from_records(val_rows, pk_rows, mmax_st, G,
+                                          super_d),
+        lambda: W.supertiles_from_records_plain(val_rows, pk_rows, mmax_st,
+                                                G, super_d),
+        max_abs_err)
+    placed = int((pk_rows >= 0).sum())
+    read_cols = int(mmax_st.sum()) * G
+    b_ms, b_by = bound(2 * 2 * read_cols + nbytes(mmax_st) + 64 * 4
+                       + nbytes(stiles),
+                       placed * K5_OPS_PER_RECORD
+                       + stiles.numel() * K5_OPS_PER_CELL)
+    entries.append(dict(
+        name="supertiles_from_records", route="cuda",
+        source="jpeggpu_tpu_torch/kernels/csrc/supertiles.cu",
+        replaces="jpeggpu_tpu/ops/write_pallas.py:345", bound_ms=b_ms,
+        bound_by=b_by, records=placed, **timing))
+
+    # K6, from K5's supertiles
+    (rows, dcd), timing = measure(
+        "K6 expand_supertiles",
+        lambda: W.expand_supertiles(stiles, base, q, n_groups, win,
+                                    tcfg.group_du),
+        lambda: W.expand_supertiles_plain(stiles, base, q, n_groups, win,
+                                          tcfg.group_du),
+        lambda got, ref: max(max_abs_err(got[0], ref[0]),
+                             max_abs_err(got[1], ref[1])))
+    b_ms, b_by = bound(nbytes(stiles, base, q, rows, dcd),
+                       rows.numel() * K6_OPS_PER_CELL)
+    entries.append(dict(
+        name="expand_supertiles", route="cuda",
+        source="jpeggpu_tpu_torch/kernels/csrc/expand_supertiles.cu",
+        replaces="jpeggpu_tpu/ops/write_pallas.py:466", bound_ms=b_ms,
+        bound_by=b_by, **timing))
+    for e in entries:
+        log(f"  {e['name']}: bound {e['bound_ms']:.4f} ms by {e['bound_by']}")
+
+    # the whole records write stage against the direct write
+    tiles_ms, (tcoeffs, tdc) = host_ms(lambda: W.decode_write_tiles(
+        tcfg, arrs, ctx, *states, return_dc=True), dev)
+    fused_ms, _ = host_ms(lambda: H.decode_write(tcfg, arrs, ctx, *states),
+                          dev)
+    total_du = tcfg.total_positions // 64
+    err = max(max_abs_err(tcoeffs, coeffs),
+              max_abs_err(tdc[:total_du], coeffs[::64].contiguous()))
+    log(f"records write stage (K4 + preparation + K5 + K6 + leftover, "
+        f"{W.scatter_leftover.lanes} leftover lane(s)): max_abs_err {err} "
+        f"against K2's stream and its DC column, {tiles_ms:.3f} ms on the "
+        f"host clock against {fused_ms:.3f} ms for decode_write  [{card}]")
+    if err:
+        raise AssertionError("the records write stage differs from K2")
+    # the leftover scatter at this size: a trim below the lanes' counts
+    trim_cfg = pipeline.build_plan(plan.stream, tuning=T.Tuning(
+        write_mode="tiles", tile_mode="super",
+        s_trim=128)).signature.scans[0].cfg
+    trim_ms, (tcoeffs, tdc) = host_ms(lambda: W.decode_write_tiles(
+        trim_cfg, arrs, ctx, *states, return_dc=True), dev)
+    err = max(max_abs_err(tcoeffs, coeffs),
+              max_abs_err(tdc[:total_du], coeffs[::64].contiguous()))
+    log(f"records write stage with s_trim=128: {W.scatter_leftover.lanes} "
+        f"leftover lane(s) of {lanes}, max_abs_err {err} against K2's "
+        f"stream, {trim_ms:.3f} ms on the host clock  [{card}]")
+    if err or not W.scatter_leftover.lanes:
+        raise AssertionError("the leftover scatter differs from K2, or "
+                             "took no lane")
+    return entries
+
+
+WRAPPERS = (H.subseq_pass, H.decode_write, I.idct_stream_to_plane,
+            H.decode_write_emit, W.supertiles_from_records,
+            W.expand_supertiles)
+
+
+def counted(fn):
+    """Run `fn` with every wrapper's launch count set to 0 just before and
+    read just after; returns (result, counts by wrapper, K3's by slot)."""
+    for w in WRAPPERS:
+        w.launches = 0
+    I.idct_stream_to_plane.launches_by_slot.clear()
+    out = fn()
+    return (out, {w.__name__: w.launches for w in WRAPPERS},
+            dict(I.idct_stream_to_plane.launches_by_slot))
+
+
+def end_to_end(dev, data, card, label, one_shot, mp):
+    """ms and MP/s of `one_shot()` (host staging included, median of 5) and
+    of a Decoder's decode from staged inputs with the planes left on the
+    device (median of 9). The Decoder plans under the process default
+    tuning."""
+    full = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        one_shot()
+        full.append((time.perf_counter() - t0) * 1e3)
+    with T.Decoder(device=dev) as d:
+        d.parse_header(data)
+        log(f"{label}: get_buffer_size {d.get_buffer_size() / 1e6:.1f} MB")
+        d.transfer()
+        sync(dev)
+
+        def run():
+            d.decode(keep_on_device=True)
+            sync(dev)
+
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        run()
+        log(f"{label}: peak device memory of a decode "
+            f"{(torch.cuda.max_memory_allocated(dev) - held) / 1e6:.1f} MB "
+            f"above the staged inputs' {held / 1e6:.1f} MB")
+        staged = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            run()
+            staged.append((time.perf_counter() - t0) * 1e3)
+    e2e, dev_only = statistics.median(full), statistics.median(staged)
+    log(f"{label}: end to end with host staging (parse, destuff, copy in, "
+        f"decode, copy out): {e2e:.2f} ms = {mp / e2e * 1e3:.0f} MP/s  "
+        f"[{card}]")
+    log(f"{label}: end to end without host staging (staged inputs, planes "
+        f"left on the device): {dev_only:.2f} ms = "
+        f"{mp / dev_only * 1e3:.0f} MP/s  [{card}]")
+    return dev_only
 
 
 def phase_main_path(dev: torch.device, data: bytes, card: str):
     """The main path with the launch counts read around it, its output
     against the plain path, and the end-to-end times."""
-    wrappers = (H.subseq_pass, H.decode_write, I.idct_stream_to_plane)
-    for w in wrappers:
-        w.launches = 0
-    I.idct_stream_to_plane.launches_by_slot.clear()
-    planes = T.decode(data, device=dev)
-    launches = {w.__name__: w.launches for w in wrappers}
-    by_slot = dict(I.idct_stream_to_plane.launches_by_slot)
+    planes, launches, by_slot = counted(lambda: T.decode(data, device=dev))
     log(f"main path launches: {launches} (sync rounds = subseq_pass "
         f"launches), idct_stream_to_plane by first slot of the component: "
         f"{by_slot}")
     n_comps = len(T.parse(data).components)
+    records_kernels = ("decode_write_emit", "supertiles_from_records",
+                       "expand_supertiles")
     if not (launches["subseq_pass"] >= 2 and launches["decode_write"] == 1
             and launches["idct_stream_to_plane"] == n_comps
-            and len(by_slot) == n_comps and all(by_slot.values())):
-        raise AssertionError(f"a kernel of the main path never ran: "
-                             f"{launches} {by_slot}")
+            and len(by_slot) == n_comps and all(by_slot.values())
+            and not any(launches[k] for k in records_kernels)):
+        raise AssertionError(f"the default path must launch K1, K2 and K3 "
+                             f"and no other kernel: {launches} {by_slot}")
 
     t0 = time.perf_counter()
     plain = T.decode(data, device="cpu")
@@ -450,51 +726,79 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
         + ", ".join(str(pl.shape) for pl in planes))
 
     mp = stream.size_x * stream.size_y / 1e6
-    full = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        T.decode(data, device=dev)
-        full.append((time.perf_counter() - t0) * 1e3)
-    with T.Decoder(device=dev) as d:
-        d.parse_header(data)
-        log(f"get_buffer_size: {d.get_buffer_size() / 1e6:.1f} MB")
-        d.transfer()
-        sync(dev)
+    dev_only = end_to_end(dev, data, card, "default path",
+                          lambda: T.decode(data, device=dev), mp)
 
-        def run():
-            d.decode(keep_on_device=True)
-            sync(dev)
+    # the records write path, through the same entry points
+    tplanes, tlaunches, tby_slot = counted(lambda: decode_tiles(data, dev))
+    log(f"records path launches: {tlaunches}, idct_stream_to_plane by first "
+        f"slot: {tby_slot}; {W.scatter_leftover.lanes} leftover lane(s)")
+    if not (tlaunches["subseq_pass"] >= 2 and tlaunches["decode_write"] == 0
+            and all(tlaunches[k] == 1 for k in records_kernels)
+            and tlaunches["idct_stream_to_plane"] == n_comps
+            and len(tby_slot) == n_comps and all(tby_slot.values())):
+        raise AssertionError(f"the records path must launch K1, K4, K5, K6 "
+                             f"and K3, and not K2: {tlaunches} {tby_slot}")
+    check_equal_numpy("12 MP records path vs default path", tplanes, planes)
+    log("12 MP decode through the records write path == default path == "
+        "plain path")
+    base_tuning = T.default_tuning()
+    T.set_default_tuning(TILES)
+    try:
+        dplanes, dlaunches, _ = counted(lambda: T.decode(data, device=dev))
+        if dlaunches != tlaunches:
+            raise AssertionError(f"a Decoder under set_default_tuning took "
+                                 f"another path: {dlaunches}")
+        check_equal_numpy("12 MP Decoder under the default tuning", dplanes,
+                          planes)
+        log("Decoder under set_default_tuning(write_mode='tiles'): the same "
+            "launches and planes")
+        tiles_dev_only = end_to_end(dev, data, card, "records path",
+                                    lambda: T.decode(data, device=dev), mp)
+    finally:
+        T.set_default_tuning(base_tuning)
+    return launches, by_slot, tlaunches, tby_slot, dev_only, tiles_dev_only
 
+
+def profile_decode(dev, card, label, run, decode_ms, own) -> None:
+    """The device's busy and idle share of one decode (`run`), from the
+    profiler's kernel times against `decode_ms`, the time of a decode from
+    staged inputs without the profiler; and the time of each launch of the
+    kernels named in `own`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         run()
-        staged = []
-        for _ in range(9):
-            t0 = time.perf_counter()
-            run()
-            staged.append((time.perf_counter() - t0) * 1e3)
-    e2e, dev_only = statistics.median(full), statistics.median(staged)
-    log(f"end to end with host staging (parse, destuff, copy in, decode, "
-        f"copy out): {e2e:.2f} ms = {mp / e2e * 1e3:.0f} MP/s  [{card}]")
-    log(f"end to end without host staging (staged inputs, planes left on "
-        f"the device): {dev_only:.2f} ms = {mp / dev_only * 1e3:.0f} MP/s  "
-        f"[{card}]")
-    return launches, by_slot, dev_only
+        sync(dev)
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    if busy_ms <= 0:
+        log(f"{label}: device busy share of a decode: not measured (the "
+            "profiler reported no device time)")
+        return
+    log(f"{label}: device busy {busy_ms:.3f} ms (kernel times from the "
+        f"profiler) of a {decode_ms:.2f} ms decode from staged inputs: idle "
+        f"share {1 - busy_ms / decode_ms:.2f}  [{card}]")
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:.4f} ms x{e.count}  {e.key[:70]}")
+    for name in own:
+        each = [e.self_device_time_total / 1e3 for e in prof.events()
+                if e.device_type == DeviceType.CUDA and name in e.name]
+        log(f"  inside the decode, {name.lstrip(':')} per launch, ms: "
+            + " ".join(f"{t:.4f}" for t in each) + f"  [{card}]")
 
 
 def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
-                          decode_ms: float) -> None:
+                          decode_ms: float, tiles_decode_ms: float) -> None:
     """Host clock per stage of one decode (each stage ends in a
-    synchronise, median of 7), and the device's idle share: the profiler's
-    kernel times of one decode against `decode_ms`, the time of a decode
-    from staged inputs without the profiler."""
-    def med(fn, reps=7):
-        times = []
-        for _ in range(reps):
-            sync(dev)
-            t0 = time.perf_counter()
-            out = fn()
-            sync(dev)
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times), out
+    synchronise, median of 7) on the default path and, for the write stage
+    and the DC stage, on the records path; then each path's device busy and
+    idle share."""
+    def med(fn):
+        return host_ms(fn, dev)
 
     stages = {}
     stages["parse + plan"], plan = med(
@@ -522,32 +826,51 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
         lambda: [pl.contiguous().cpu().numpy() for pl in planes])
     for name, ms in stages.items():
         log(f"stage {name}: {ms:.3f} ms  [{card}]")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pipeline.decode_pipeline(plan.signature, staged["scans"], qtables)
-        sync(dev)
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    if busy_ms <= 0:
-        log("device busy share of a decode: not measured (the profiler "
-            "reported no device time)")
-        return
-    log(f"device busy {busy_ms:.3f} ms (kernel times from the profiler) of a "
-        f"{decode_ms:.2f} ms decode from staged inputs: idle share "
-        f"{1 - busy_ms / decode_ms:.2f}  [{card}]")
-    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"  {e.self_device_time_total / 1e3:.4f} ms x{e.count}  {e.key[:70]}")
-    own = ("subseq_pass_kernel", "decode_write_kernel",
-           "idct_stream_to_plane_kernel")
-    for name in own:
-        each = [e.self_device_time_total / 1e3 for e in prof.events()
-                if e.device_type == DeviceType.CUDA and name in e.name]
-        log(f"  inside the decode, {name} per launch, ms: "
-            + " ".join(f"{t:.4f}" for t in each) + f"  [{card}]")
+    # the records path's write and DC stages, from the same states
+    tplan = pipeline.build_plan(plan.stream, tuning=TILES)
+    tcfg = tplan.signature.scans[0].cfg
+    pos0 = arrs.seg_of_subseq * tcfg.positions_per_seg + n_off
+    tiles = {}
+    tiles["decode_write_emit"], (rec, m) = med(
+        lambda: H.decode_write_emit(tcfg, arrs, ctx, p, c, z, n_off))
+    tiles["supertile_records (preparation)"], prep = med(
+        lambda: W.supertile_records(
+            rec, m, pos0 >> 6, pos0, tcfg.total_positions, tcfg.super_g,
+            tcfg.super_w, tcfg.tuning.s_trim, tcfg.group_du, tcfg.super_d))
+    val_rows, pk_rows, mmax_st, base, q, leftover, n_groups, win = prep
+    tiles["supertiles_from_records"], stiles = med(
+        lambda: W.supertiles_from_records(val_rows, pk_rows, mmax_st,
+                                          tcfg.super_g, tcfg.super_d))
+    tiles["expand_supertiles"], (rows, dcd) = med(
+        lambda: W.expand_supertiles(stiles, base, q, n_groups, win,
+                                    tcfg.group_du))
+    # adding the same records again on every repetition changes the sums,
+    # not the work
+    tiles["scatter_leftover"], _ = med(lambda: W.scatter_leftover(
+        rows.view(-1), rec, m, pos0, leftover, tcfg.total_positions,
+        s_trim=tcfg.tuning.s_trim, dc_flat=dcd))
+    tiles["decode_write_tiles (all of the above)"], (tcoeffs, tdc) = med(
+        lambda: W.decode_write_tiles(tcfg, arrs, ctx, p, c, z, n_off,
+                                     return_dc=True))
+    tiles["undelta_dc_values(dc=side vector)"], _ = med(
+        lambda: DC.undelta_dc_values(tcfg, comp_slots, dc=tdc))
+    for name, ms in tiles.items():
+        log(f"records path stage {name}: {ms:.3f} ms  [{card}]")
+
+    profile_decode(
+        dev, card, "default path",
+        lambda: pipeline.decode_pipeline(plan.signature, staged["scans"],
+                                         qtables),
+        decode_ms, ("::subseq_pass_kernel", "::decode_write_kernel",
+                    "::idct_stream_to_plane_kernel"))
+    profile_decode(
+        dev, card, "records path",
+        lambda: pipeline.decode_pipeline(tplan.signature, staged["scans"],
+                                         qtables),
+        tiles_decode_ms, ("::subseq_pass_kernel", "::emit_pass_kernel",
+                          "::supertiles_kernel", "::expand_supertiles_kernel",
+                          "::idct_stream_to_plane_kernel"))
 
 
 def main() -> int:
@@ -573,17 +896,28 @@ def main() -> int:
     log(f"{width}x{height} JPEG: {len(data)} bytes from a {strip_rows}-row "
         f"strip, made in {time.perf_counter() - t0:.1f} s")
     golden_strip = repeat_strip(strip, 48)
+    strip_planes = golden.decode(golden_strip)
     check_equal_numpy("strip vs golden", T.decode(golden_strip, device=dev),
-                      golden.decode(golden_strip))
-    log(f"{width}x48 strip at full row width: decode on {dev.type} == golden")
+                      strip_planes)
+    check_equal_numpy("strip vs golden, records path",
+                      decode_tiles(golden_strip, dev), strip_planes)
+    log(f"{width}x48 strip at full row width: decode on {dev.type} == golden "
+        f"on the default path and through the records write path")
 
     entries = phase_kernels(dev, data, card)
-    launches, by_slot, decode_ms = phase_main_path(dev, data, card)
-    phase_where_time_goes(dev, data, card, decode_ms)
+    (launches, by_slot, tlaunches, tby_slot, decode_ms,
+     tiles_decode_ms) = phase_main_path(dev, data, card)
+    phase_where_time_goes(dev, data, card, decode_ms, tiles_decode_ms)
     for e in entries:
-        # counted by the wrappers during the main path's run, K3 per component
-        e["launches"] = (by_slot[e.pop("slot")] if "slot" in e
-                         else launches[e["name"]])
+        # counted by the wrappers during each main path's run, K3 per
+        # component; `launches` is the count on the path that is the
+        # kernel's own (K1-K3 the default path, K4-K6 the records path)
+        slot = e.pop("slot", None)
+        on_default = launches[e["name"]] if slot is None else by_slot[slot]
+        on_records = tlaunches[e["name"]] if slot is None else tby_slot[slot]
+        e["launches"] = on_default or on_records
+        e["launches_default_path"] = on_default
+        e["launches_records_path"] = on_records
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -4,10 +4,13 @@ The PyTorch/CUDA port of the JAX package beside it: host-side marker
 parsing, table derivation and destuffing, then on the device the
 subsequence-parallel speculative Huffman decode with self-synchronisation,
 the DC prefix sums and the fused de-interleave + integer dequantise + IDCT.
-Plain tensor code is PyTorch; the three kernels of the decode path are CUDA
-C++ (``kernels/csrc``), built at first use. The package imports torch and
-numpy only.
+Plain tensor code is PyTorch; the kernels of the decode path (three on the
+default path, three more on the records write path that
+``Tuning(write_mode="tiles")`` selects) are CUDA C++ (``kernels/csrc``),
+built at first use. The package imports torch and numpy only.
 """
+
+from .config import Tuning, default_tuning, set_default_tuning
 
 from .errors import (
     IncompleteBitstream,
@@ -32,12 +35,15 @@ __all__ = [
     "NotSupported",
     "OutOfHostMemory",
     "Status",
+    "Tuning",
     "Decoder",
     "ImgInfo",
     "decode",
     "decode_rgb",
+    "default_tuning",
     "get_status_string",
     "parse",
+    "set_default_tuning",
 ]
 
 

@@ -16,6 +16,11 @@ PyTorch's execution model:
 
 ``device=None`` is the CUDA device and raises where there is none; pass
 ``device="cpu"`` to run the kernels' plain versions (as the tests do).
+
+The plan that ``parse_header`` builds carries the process default tuning
+(``config.set_default_tuning``): that is how a ``Decoder`` or ``decode`` is
+sent through the records write path (``Tuning(write_mode="tiles")``); the
+entry points take no tuning argument.
 """
 
 from __future__ import annotations

@@ -8,25 +8,45 @@ as plain ints and tuples, the per-scan numpy arrays that
 and the quantisation tables. The JAX package's ``build_plan`` /
 ``build_inputs`` produce the same fields under the same names, so a test
 can pull them out of a JAX plan and hand them over; with that both packages
-decode the same staged state. Nothing of the JAX package is imported here.
+decode the same staged state. The intermediate arrays of the records write
+path cross the same way, as numpy, in both directions (:func:`to_torch`,
+:func:`to_numpy`): ``(rec, m)``, ``(val_rows, pk_rows, mmax_st)`` and
+``(stiles, base, q)`` have the same shapes, types and meaning in both
+packages. Nothing of the JAX package is imported here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Tuple
 
 import numpy as np
 import torch
 
+from .config import Tuning
 from .ops.huffman import ScanArrays, ScanConfig
 
 GEOMETRY_FIELDS = ("lanes", "num_segments", "du_per_mcu", "mcus_per_seg",
-                   "total_mcus", "comp_groups", "fast_tables")
+                   "total_mcus", "comp_groups", "fast_tables", "super_g",
+                   "super_w", "super_d", "group_du", "tile_auto")
+_TUNING_FIELDS = tuple(f.name for f in dataclasses.fields(Tuning))
+
+
+def tuning(source=None) -> Tuning:
+    """A :class:`Tuning` from any object that carries fields of the same
+    names (a ``Tuning`` of the JAX package, say); fields it lacks, and a
+    ``write_mode`` this package does not have, keep the defaults."""
+    kwargs = {name: getattr(source, name) for name in _TUNING_FIELDS
+              if hasattr(source, name)}
+    if kwargs.get("write_mode") not in ("fused", "tiles"):
+        kwargs.pop("write_mode", None)
+    return Tuning(**kwargs)
 
 
 def scan_config(geometry: Mapping) -> ScanConfig:
-    """Geometry (a mapping with :data:`GEOMETRY_FIELDS`; extra keys are
-    ignored) -> :class:`ScanConfig`."""
+    """Geometry (a mapping with :data:`GEOMETRY_FIELDS` and, optionally,
+    ``tuning``; other keys are ignored) -> :class:`ScanConfig`."""
+    tun = geometry.get("tuning")
     return ScanConfig(
         lanes=int(geometry["lanes"]),
         num_segments=int(geometry["num_segments"]),
@@ -36,6 +56,12 @@ def scan_config(geometry: Mapping) -> ScanConfig:
         comp_groups=tuple(tuple(int(v) for v in g)
                           for g in geometry["comp_groups"]),
         fast_tables=bool(geometry["fast_tables"]),
+        super_g=int(geometry["super_g"]),
+        super_w=int(geometry["super_w"]),
+        super_d=int(geometry["super_d"]),
+        group_du=int(geometry["group_du"]),
+        tile_auto=str(geometry["tile_auto"]),
+        tuning=tun if isinstance(tun, Tuning) else tuning(tun),
     )
 
 
@@ -77,3 +103,17 @@ def from_reference_inputs(geometry: Mapping,
     q = torch.from_numpy(
         np.ascontiguousarray(qtables).astype(np.int32)).to(device)
     return cfg, arrs, q
+
+
+def to_torch(arrays, device: torch.device | str = "cpu"):
+    """A tuple of arrays (numpy, or anything ``np.asarray`` takes, such as
+    the JAX package's outputs) -> torch tensors of the same types on
+    ``device``: one stage's output in the other package, ready for this
+    package's next stage."""
+    return tuple(torch.from_numpy(np.array(a)).to(device) for a in arrays)
+
+
+def to_numpy(tensors):
+    """A tuple of tensors -> numpy arrays, for the other package's next
+    stage."""
+    return tuple(t.detach().cpu().numpy() for t in tensors)

@@ -10,7 +10,8 @@ imported: a machine with no ``nvcc`` can import the package and run the
 plain versions on CPU tensors.
 
 The wrappers that launch the kernels (and count their launches) live beside
-the plain PyTorch versions in ``ops/huffman.py`` and ``ops/idct.py``; they
+the plain PyTorch versions in ``ops/huffman.py``, ``ops/write.py`` and
+``ops/idct.py``; they
 call :func:`get` for the C function, pass ``tensor.data_ptr()`` and
 ``torch.cuda.current_stream().cuda_stream``, and raise when the function
 returns anything but ``cudaSuccess``. A kernel that fails to build or to
@@ -46,6 +47,12 @@ _KERNELS = {
         "decode_write.cu", ("huffman_common.cuh",), [_P] * 17 + [_I] * 3 + [_P]),
     "jpeggpu_idct_stream_to_plane": (
         "idct_stream.cu", (), [_P] * 4 + [_I] * 6 + [_P]),
+    "jpeggpu_emit_pass": (
+        "emit_pass.cu", ("huffman_common.cuh",), [_P] * 17 + [_I] * 4 + [_P]),
+    "jpeggpu_supertiles": (
+        "supertiles.cu", (), [_P] * 5 + [_I] * 4 + [_P]),
+    "jpeggpu_expand_supertiles": (
+        "expand_supertiles.cu", (), [_P] * 5 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

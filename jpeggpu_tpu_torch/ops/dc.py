@@ -15,7 +15,8 @@ from .huffman import ScanConfig
 
 
 def undelta_dc_values(cfg: ScanConfig, comp_slots,
-                      coeffs: torch.Tensor) -> torch.Tensor:
+                      coeffs: torch.Tensor = None,
+                      dc: torch.Tensor = None) -> torch.Tensor:
     """Un-deltaed DC values alone: int16[total_du].
 
     The stream -> plane kernel takes slot 0 of every data unit from this
@@ -25,10 +26,17 @@ def undelta_dc_values(cfg: ScanConfig, comp_slots,
       cfg: scan geometry.
       comp_slots: per scan component (off_in_mcu, du_per_mcu of the component).
       coeffs: int16[total_positions] stream-order coefficients.
+      dc: if given, the per-data-unit difference-coded DC vector
+        (int16[>= total_du], the records write path's side output);
+        ``coeffs`` is then not read, which spares the strided pass over
+        slot 0 of the whole stream.
     """
     total_du = cfg.total_mcus * cfg.du_per_mcu
-    dc = coeffs.view(total_du, C.DATA_UNIT_SIZE)[:, 0].to(torch.int64)
-    slot = torch.arange(total_du, device=coeffs.device) % cfg.du_per_mcu
+    if dc is not None:
+        dc = dc[:total_du].to(torch.int64)
+    else:
+        dc = coeffs.view(total_du, C.DATA_UNIT_SIZE)[:, 0].to(torch.int64)
+    slot = torch.arange(total_du, device=dc.device) % cfg.du_per_mcu
     seg_du = cfg.mcus_per_seg * cfg.du_per_mcu
     nseg = -(-total_du // seg_du)
     pad = nseg * seg_du - total_du

@@ -16,11 +16,14 @@ Decode-state semantics:
   n  coefficient positions (run + 1 per symbol) produced by the lane,
   c  data-unit index within the MCU, z  zig-zag index within the data unit.
 
-Two functions here are CUDA kernels on the card, :func:`subseq_pass` (K1,
-every sync round) and :func:`decode_write` (K2, the writing decode). Each
-has its plain PyTorch version beside it, lock-step over all lanes with
-gathers for the bit loads and table lookups; a wrapper takes the plain
-version only for CPU tensors and launches its kernel for CUDA tensors.
+Three functions here are CUDA kernels on the card: :func:`subseq_pass` (K1,
+every sync round), :func:`decode_write` (K2, the writing decode that stores
+into the coefficient stream) and :func:`decode_write_emit` (K4, the writing
+decode that emits packed records for the records write path of
+``ops/write.py``). Each has its plain PyTorch version beside it, lock-step
+over all lanes with gathers for the bit loads and table lookups; a wrapper
+takes the plain version only for CPU tensors and launches its kernel for
+CUDA tensors.
 The word stream is carried as int32 bit patterns of the big-endian uint32
 words (the kernels reinterpret them as unsigned, the plain versions widen
 to int64).
@@ -36,6 +39,7 @@ import torch
 
 from .. import constants as C
 from .. import kernels
+from ..config import Tuning
 
 _M32 = 0xFFFFFFFF
 
@@ -55,6 +59,21 @@ class ScanConfig:
     # canonical-limit fast symbol decode; the host parser sets this False
     # when a table's code space saturates (tables.HuffmanTable.saturated)
     fast_tables: bool = True
+    # supertile geometry of the records write path (ops/write.py), sized by
+    # build_plan from the stream's average data units per subsequence:
+    # super_g consecutive lanes share one (super_d, 64) supertile; the
+    # expand stage gathers group_du data units per group from a window of
+    # super_w supertiles; lanes that do not fit drain through the leftover
+    # scatter
+    super_g: int = 4
+    super_w: int = 8
+    super_d: int = 128
+    group_du: int = 128
+    # what tile_mode="auto" resolves to for this scan ("super" | "lane"):
+    # build_plan picks "lane" for sparse scans whose smallest supertile
+    # group would overflow the super_d window
+    tile_auto: str = "super"
+    tuning: Tuning = Tuning()
 
     @property
     def total_positions(self) -> int:
@@ -464,13 +483,156 @@ def decode_write(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
 decode_write.launches = 0
 
 
-def decode_scan(cfg: ScanConfig, arrs: ScanArrays) -> torch.Tensor:
+# --- K4: the writing decode, record-emission form ---------------------------
+
+_REC_INERT = 0xFFFF  # packed record of an inert slot: value 0, local pos -1
+
+
+def _emit_cap(chunk: int) -> int:
+    """Record slots per subsequence: one per bit of the 1024-bit
+    subsequence, plus the <= 31-bit overhang a lane can inherit when its
+    predecessor stopped short of the boundary, times 8/7, rounded up to
+    whole chunks. The 8/7 is the reference's allowance for the inert holes
+    its decoder leaves between committed slots; this package's records are
+    dense, and the factor is kept so that the buffer has the reference's
+    shape and arrays can cross between the two."""
+    cap = C.SUBSEQ_SIZE_BITS + 32
+    cap = -(-cap * 8 // 7)
+    return -(-cap // chunk) * chunk
+
+
+def pack_record(val: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
+    """Pack one emitted symbol as ``(val << 16) | (local_pos & 0xFFFF)``,
+    int32. The value keeps its low 16 bits (a coefficient is int16-exact)
+    and the lane-local position ``wl = wp - pos0`` its low 16 bits; inert
+    slots carry ``wl = -1``."""
+    packed = (val.to(torch.int64) << 16) | (wl.to(torch.int64) & 0xFFFF)
+    return _wrap_i32(packed).to(torch.int32)
+
+
+def unpack_record(rec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed int32 records -> ``(val, local_pos)``, both int32 (arithmetic
+    shifts sign-extend each half)."""
+    return rec >> 16, (rec << 16) >> 16
+
+
+def decode_write_emit_plain(cfg, arrs, ctx, p, c, z, n_off):
+    """Plain version of :func:`decode_write_emit`: all lanes in lock step,
+    one symbol and one row of records per iteration, on whatever device
+    holds the tensors. Unreached slots hold the inert record."""
+    s_cap = _emit_cap(cfg.tuning.write_chunk)
+    sp, sc, sz, pos0, bound, active = _write_inputs(cfg, arrs, ctx, p, c, z,
+                                                    n_off)
+    p, c, z = sp.to(torch.int64), sc.to(torch.int64), sz.to(torch.int64)
+    pos = pos0.to(torch.int64)
+    pos_start = pos
+    bound = bound.to(torch.int64)
+    rec = torch.full((s_cap, cfg.lanes), _REC_INERT, dtype=torch.int32,
+                     device=p.device)
+    m = torch.zeros(cfg.lanes, dtype=torch.int32, device=p.device)
+    for slot in range(s_cap):
+        alive = active & (pos < bound)
+        if not bool(alive.any()):
+            break
+        p, c, z, sym, run, commit = _symbol_step(cfg, arrs, ctx, p, c, z, alive)
+        wp = pos + run
+        # the position is recorded even where the value is dropped by the
+        # segment bound
+        val = torch.where(commit & (wp < bound), sym, 0)
+        rec[slot] = torch.where(commit, pack_record(val, wp - pos_start),
+                                _REC_INERT)
+        m = torch.where(commit, slot + 1, m)
+        pos = torch.where(commit, wp + 1, pos)
+        active = commit
+    return rec, m
+
+
+def decode_write_emit(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
+                      n_off) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Writing decode, record-emission form: re-decode every subsequence
+    once from its synced start state and emit one packed record per
+    committed symbol.
+
+    Returns ``(rec, m)``: ``rec[s, l]`` (int32[s_cap, lanes]) packs the
+    value and the lane-local output position of lane ``l``'s ``s``-th
+    symbol as ``(val << 16) | ((wp - pos0[l]) & 0xFFFF)`` (see
+    :func:`pack_record`); the value is 0 for symbols that write nothing
+    (EOB, ZRL, zero DC differences) and for positions at or past the
+    segment's bound, whose positions are recorded all the same. ``m[l]``
+    (int32[lanes]) is one past the lane's last committed slot. A consumer
+    treats a slot as real iff ``s < m[l]`` and ``local_pos >= 0``; real
+    slots are in stream order. Records are dense here (slot ``s`` is the
+    lane's ``s``-th symbol and ``m`` its symbol count); the reference may
+    leave inert holes between them, which the contract allows.
+
+    CUDA tensors: kernel K4 (``kernels/csrc/emit_pass.cu``; replaces the
+    Pallas kernel behind ``jpeggpu_tpu/ops/huffman_pallas.py: emit_pass``).
+    Bound like K2 by the slowest lane's chain of dependent operations;
+    see the note in the source. On the card the slots at and past ``m[l]``
+    are left uninitialised (the buffer is ``torch.empty``: filling it with
+    the inert record would write s_cap * lanes * 4 bytes that no consumer
+    reads). CPU tensors: the plain version, which fills them.
+    """
+    dev = p.device
+    if dev.type == "cpu":
+        return decode_write_emit_plain(cfg, arrs, ctx, p, c, z, n_off)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_write_emit: unsupported device {dev}")
+    sp, sc, sz, pos0, bound, active0 = _write_inputs(cfg, arrs, ctx, p, c, z,
+                                                     n_off)
+    lanes = cfg.lanes
+    s_cap = _emit_cap(cfg.tuning.write_chunk)
+    i32 = torch.int32
+    _check_lane_tensors(
+        "decode_write_emit", dev, lanes, p0=(sp, i32), c0=(sc, i32),
+        z0=(sz, i32), pos0=(pos0, i32), bound=(bound, i32),
+        active0=(active0, torch.bool), word_end=(ctx.word_end, i32),
+        seg_base_bits=(ctx.seg_base_bits, i32),
+        end_subseq=(ctx.end_subseq, i32))
+    _check_lane_tensors("decode_write_emit", dev, lanes * C.CHUNK_SIZE_WORDS,
+                        words=(arrs.words, i32))
+    rec = torch.empty((s_cap, lanes), dtype=i32, device=dev)
+    m = torch.empty(lanes, dtype=i32, device=dev)
+    fn = kernels.get("jpeggpu_emit_pass")
+    err = fn(arrs.words.data_ptr(), ctx.word_end.data_ptr(),
+             ctx.seg_base_bits.data_ptr(), ctx.end_subseq.data_ptr(),
+             *_table_ptrs(arrs, ctx, dev),
+             sp.data_ptr(), sc.data_ptr(), sz.data_ptr(), pos0.data_ptr(),
+             bound.data_ptr(), active0.data_ptr(), rec.data_ptr(),
+             m.data_ptr(), lanes, s_cap, cfg.du_per_mcu,
+             int(cfg.fast_tables), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "decode_write_emit")
+    decode_write_emit.launches += 1
+    return rec, m
+
+
+decode_write_emit.launches = 0
+
+
+def decode_scan(cfg: ScanConfig, arrs: ScanArrays, return_dc: bool = False):
     """Full entropy decode of one scan: sync, offsets, write.
 
     Returns int16[total_positions] stream-order coefficients (natural order
-    within each data unit, DC still difference-coded).
+    within each data unit, DC still difference-coded). With ``return_dc``
+    returns ``(coeffs, dc)`` where ``dc`` is the per-data-unit
+    difference-coded DC side vector, or ``None`` when the write mode has
+    none.
     """
     ctx = make_ctx(cfg, arrs)
     p, c, z, n = sync_states(cfg, arrs, ctx)
     n_off = symbol_offsets(cfg, arrs, n)
-    return decode_write(cfg, arrs, ctx, p, c, z, n_off)
+    return decode_scan_from_states(cfg, arrs, ctx, p, c, z, n_off,
+                                   return_dc=return_dc)
+
+
+def decode_scan_from_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c,
+                            z, n_off, return_dc: bool = False):
+    """Writing decode from already-synced states: the write-stage dispatch
+    of :func:`decode_scan` on ``cfg.tuning.write_mode``."""
+    if cfg.tuning.write_mode == "tiles":
+        from . import write
+
+        return write.decode_write_tiles(cfg, arrs, ctx, p, c, z, n_off,
+                                        return_dc=return_dc)
+    coeffs = decode_write(cfg, arrs, ctx, p, c, z, n_off)
+    return (coeffs, None) if return_dc else coeffs

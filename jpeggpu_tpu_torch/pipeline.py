@@ -7,7 +7,11 @@ validity is data-driven, see ``ops.huffman.make_ctx``). The device chain is
   sync_states (K1 per round) -> symbol_offsets -> decode_write (K2)
   -> undelta_dc_values -> idct_stream_to_plane (K3 per component) -> crop
 
-and runs eagerly on the device that holds the staged inputs.
+and runs eagerly on the device that holds the staged inputs. Under a plan
+built with ``Tuning(write_mode="tiles")`` the write stage is the records
+path instead (``ops/write.py``): decode_write_emit (K4) ->
+supertiles_from_records (K5) -> expand_supertiles (K6) -> leftover scatter,
+whose DC side vector feeds undelta_dc_values.
 """
 
 from __future__ import annotations
@@ -20,10 +24,12 @@ import torch
 
 from . import constants as C
 from . import convert
+from .config import Tuning, default_tuning
 from .errors import OutOfHostMemory
 from .ops.dc import undelta_dc_values
-from .ops.huffman import ScanArrays, ScanConfig, decode_scan
+from .ops.huffman import ScanArrays, ScanConfig, _emit_cap, decode_scan
 from .ops.idct import idct_stream_to_plane
+from .ops.write import resolve_tile_mode
 from .reader import JpegStream, Scan, num_mcus_in_segment, parse
 
 
@@ -74,8 +80,45 @@ class DecodePlan:
     stream: JpegStream
 
 
-def build_plan(stream: JpegStream) -> DecodePlan:
-    """Build the decode plan (static geometry) for a parsed stream."""
+def _supertile_geometry(scan: Scan, tuning: Tuning) -> Dict:
+    """Supertile geometry of the records write path for one scan, from the
+    stream's average data units per subsequence; the tuning's nonzero
+    fields override."""
+    avg_du = scan.total_data_units / max(scan.num_subsequences, 1)
+    # G consecutive lanes share one super_d-row data-unit window. Target a
+    # typical fill of about a third (G * avg_du <= 0.35 * super_d):
+    # low-entropy lanes span several times the average, and one lane that
+    # spans past the window sends itself to the leftover scatter. A power
+    # of two, so that it divides the lane bucket.
+    super_d = tuning.super_d or 128
+    super_g = tuning.super_g
+    if not super_g:
+        super_g = 2
+        while super_g < 32 and (2 * super_g) * avg_du <= 0.703 * super_d:
+            super_g *= 2
+    group_du = tuning.group_du or 256
+    # expand window: supertiles per group_du-wide output group. Dense
+    # regions pack 2-3x more supertiles per group than the average, so the
+    # window is twice the average extent, with a floor and a cap (lanes
+    # past the window drain through the leftover scatter).
+    avg_extent = -(-group_du // max(int(super_g * avg_du), 1))
+    super_w = (tuning.super_w
+               or min(max(2 * avg_extent, 4), 4 + group_du // 16))
+    # sparse scans (avg_du above ~55): even a 2-lane group typically spans
+    # the 128-row window; "auto" routes those to the per-lane tile shape
+    tile_auto = "lane" if avg_du > 55.0 else "super"
+    return dict(super_g=super_g, super_w=super_w, super_d=super_d,
+                group_du=group_du, tile_auto=tile_auto)
+
+
+def build_plan(stream: JpegStream,
+               tuning: Optional[Tuning] = None) -> DecodePlan:
+    """Build the decode plan (static geometry) for a parsed stream under
+    ``tuning`` (default: the process default, ``config.default_tuning``).
+    Raises ``NotSupported`` where the tuning asks for the records write
+    path in a tile shape this package does not have."""
+    if tuning is None:
+        tuning = default_tuning()
     scans = []
     for scan in stream.scans:
         comps = []
@@ -103,7 +146,11 @@ def build_plan(stream: JpegStream) -> DecodePlan:
             comp_groups=tuple(comp_groups),
             fast_tables=not any(scan.huff_tables[s].saturated
                                 for s in used_slots),
+            tuning=tuning,
+            **_supertile_geometry(scan, tuning),
         )
+        if tuning.write_mode == "tiles":
+            resolve_tile_mode(tuning.tile_mode, cfg.tile_auto)
         scans.append(ScanPlanStatic(
             cfg=cfg, num_mcus_x=scan.num_mcus_x, num_mcus_y=scan.num_mcus_y,
             comps=tuple(comps)))
@@ -213,6 +260,18 @@ def plan_buffer_size(plan: DecodePlan) -> int:
         coeffs = 2 * cfg.total_positions + 2 * total_du
         planes = sum(c[4] * c[5] for c in sp.comps)
         total += tables + staged + ctx + sync + write + coeffs + planes
+        if cfg.tuning.write_mode == "tiles":
+            # the emission buffer, the trimmed records in their widest
+            # intermediate form (unpacked value and position, data unit,
+            # row index, packed and interleaved rows), the supertiles, the
+            # padding of the dense rows and the DC side vector
+            s_cap = _emit_cap(cfg.tuning.write_chunk)
+            trimmed = min(cfg.tuning.s_trim, s_cap) * cfg.lanes
+            n_st = cfg.lanes // cfg.super_g
+            pad_du = cfg.group_du + 2
+            total += (4 * s_cap * cfg.lanes + 28 * trimmed
+                      + 128 * cfg.super_d * n_st
+                      + 130 * pad_du + 2 * total_du)
     return total
 
 
@@ -225,11 +284,13 @@ def decode_pipeline(signature: PlanSignature, scan_arrays: List[ScanArrays],
     pix: Dict[int, torch.Tensor] = {}
     for sp, arrs in zip(signature.scans, scan_arrays):
         cfg = sp.cfg
-        coeffs = decode_scan(cfg, arrs)
+        # dcd: the records write path's difference-coded DC side vector
+        # (None from the direct write, which has none)
+        coeffs, dcd = decode_scan(cfg, arrs, return_dc=True)
         comp_slots = tuple((c[1], c[2] * c[3]) for c in sp.comps)
         # DC un-delta as a side vector: the stream -> plane kernel takes
         # slot 0 from it, so the DC stage never rewrites the stream
-        dcv = undelta_dc_values(cfg, comp_slots, coeffs)
+        dcv = undelta_dc_values(cfg, comp_slots, coeffs, dc=dcd)
         for c in sp.comps:
             pix[c[0]] = idct_stream_to_plane(
                 coeffs, qtables[c[6]], sp.num_mcus_x, sp.num_mcus_y,

@@ -1,5 +1,7 @@
 """PyTorch port, entropy decode: kernels K1 (subseq_pass, through
-sync_states) and K2 (decode_write) in their plain versions on the CPU.
+sync_states) and K2 (decode_write) in their plain versions on the CPU, and
+the records write path (K4-K6, ``Tuning(write_mode="tiles")``) over the
+same matrix of streams.
 
 (a) Against the JAX package: the same staged inputs, handed over through
 ``convert.from_reference_inputs``, give the same converged states and the
@@ -147,6 +149,70 @@ def test_planes_match_golden(decoded, name):
     for a, b in zip(expect, d["planes"]):
         assert b.dtype == np.uint8 and a.shape == b.shape
         assert np.array_equal(a, b)
+
+
+# --- the records write path over the matrix ----------------------------------
+
+_TILES = T.Tuning(write_mode="tiles", tile_mode="super")
+
+
+def _garbage_body(image):
+    """A valid header in front of a random scan body (no 0xFF bytes)."""
+    data = encode(image[..., 0], EncodeSpec(restart_interval=3))
+    scan = T.parse(data).scans[0]
+    rng = np.random.default_rng(23)
+    body = rng.integers(0, 255, scan.end - scan.begin, dtype=np.uint8)
+    body[body == 0xFF] = 0x7F
+    return data[:scan.begin] + body.tobytes() + data[scan.end:]
+
+
+# name -> (stream, tuning); the first and the last must send lanes through
+# the leftover scatter, the garbage body may
+_LEFTOVER_CASES = {
+    # flat gray: ~3 bits per data unit, subsequences span more data units
+    # than a supertile holds
+    "flat_gray_q50": (lambda image: encode(np.full((128, 136), 130, np.uint8),
+                                           EncodeSpec(quality=50)), _TILES),
+    "garbage_body": (_garbage_body, _TILES),
+    # a record-slot trim below the lanes' record counts
+    "trim128": (lambda image: encode(image, EncodeSpec(quality=95)),
+                T.Tuning(write_mode="tiles", tile_mode="super", s_trim=128)),
+}
+
+
+@pytest.mark.parametrize("name", CASES + list(_LEFTOVER_CASES))
+def test_records_path_matches_golden(decoded, test_image, name):
+    """decode_jpeg_device under a plan built with write_mode="tiles": the
+    planes equal golden's, and every scan's coefficients and DC side vector
+    equal the direct write's, over the matrix, over two streams that send
+    lanes through the leftover scatter and over a garbage scan body."""
+    from jpeggpu_tpu_torch.ops import write as TW
+
+    if name in _LEFTOVER_CASES:
+        make, tuning = _LEFTOVER_CASES[name]
+        data = make(test_image)
+    else:
+        data, tuning = decoded(name)["data"], _TILES
+    plan = pipeline.build_plan(T.parse(data), tuning=tuning)
+    staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan),
+                                   torch.device("cpu"))
+    fused_plan = pipeline.build_plan(T.parse(data))
+    for sp, fsp, arrs in zip(plan.signature.scans, fused_plan.signature.scans,
+                             staged["scans"]):
+        assert sp.cfg.tuning.write_mode == "tiles"
+        coeffs, dc = TH.decode_scan(sp.cfg, arrs, return_dc=True)
+        if name in ("flat_gray_q50", "trim128"):
+            assert TW.scatter_leftover.lanes > 0
+        expect, none = TH.decode_scan(fsp.cfg, arrs, return_dc=True)
+        assert none is None and coeffs.dtype == torch.int16
+        assert np.array_equal(coeffs.numpy(), expect.numpy())
+        assert np.array_equal(dc.numpy()[:expect.numel() // 64],
+                              expect.numpy()[::64])
+    planes = pipeline.decode_jpeg_device(data, device="cpu", plan=plan)
+    expect = golden.decode(data)
+    assert len(planes) == len(expect)
+    for a, b in zip(expect, planes):
+        assert b.dtype == np.uint8 and np.array_equal(a, b)
 
 
 # --- against the JAX package ------------------------------------------------

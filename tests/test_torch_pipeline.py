@@ -48,6 +48,76 @@ def test_decode_matches_jax_pipeline(test_image, data_420_rst2, port_planes):
         assert np.array_equal(a, b)
 
 
+_TILES = T.Tuning(write_mode="tiles", tile_mode="super")
+
+
+def test_tiles_decode_matches_jax_pipeline(data_420_rst2, port_planes):
+    """The records write path through the normal entry point, under a plan
+    built with Tuning(write_mode="tiles"): equal to the JAX pipeline under
+    the same tuning (its Pallas kernels in interpret mode), to the default
+    path and to golden."""
+    from jpeggpu_tpu.config import Tuning as JTuning
+    from jpeggpu_tpu.pipeline import build_plan, decode_jpeg_device
+    from jpeggpu_tpu.reader import parse
+
+    plan = pipeline.build_plan(T.parse(data_420_rst2), tuning=_TILES)
+    assert plan.signature.scans[0].cfg.tuning == _TILES
+    got = pipeline.decode_jpeg_device(data_420_rst2, device="cpu", plan=plan)
+    expect = decode_jpeg_device(data_420_rst2, plan=build_plan(
+        parse(data_420_rst2),
+        tuning=JTuning(write_mode="tiles", tile_mode="super")))
+    assert len(got) == len(expect) == 3
+    for a, b, c, d in zip(expect, got, port_planes,
+                          golden.decode(data_420_rst2)):
+        assert a.dtype == b.dtype == np.uint8 and a.shape == b.shape
+        assert np.array_equal(a, b)
+        assert np.array_equal(b, c) and np.array_equal(b, d)
+
+
+def test_default_tuning_reaches_the_decoder(data_420_rst2, port_planes):
+    """The process default travels in the plans that Decoder and decode
+    build: api.decode takes no tuning argument, as in the JAX package."""
+    base = T.default_tuning()
+    assert base.write_mode == "fused"
+    try:
+        T.set_default_tuning(_TILES)
+        with T.Decoder(device="cpu") as d:
+            d.parse_header(data_420_rst2)
+            assert d._plan.signature.scans[0].cfg.tuning == _TILES
+            assert d.get_buffer_size() > 0
+            planes = d.decode()
+        one_shot = T.decode(data_420_rst2, device="cpu")
+    finally:
+        T.set_default_tuning(base)
+    for a, b, c in zip(planes, one_shot, port_planes):
+        assert np.array_equal(a, c) and np.array_equal(b, c)
+    plan = pipeline.build_plan(T.parse(data_420_rst2))
+    assert plan.signature.scans[0].cfg.tuning == base
+    tiles = pipeline.build_plan(T.parse(data_420_rst2), tuning=_TILES)
+    assert pipeline.plan_buffer_size(tiles) > pipeline.plan_buffer_size(plan)
+
+
+def test_per_lane_tile_shape_is_refused(data_420_rst2):
+    """tile_mode="lane", and an "auto" that resolves to it on a sparse
+    scan, raise NotSupported naming the missing kernels: no quiet other
+    path. The default write mode is untouched by tile_mode."""
+    lane = T.Tuning(write_mode="tiles", tile_mode="lane")
+    with pytest.raises(T.NotSupported, match="tiles_from_records"):
+        pipeline.build_plan(T.parse(data_420_rst2), tuning=lane)
+    flat = encode(np.full((128, 136), 130, np.uint8), EncodeSpec(quality=50))
+    stream = T.parse(flat)
+    with pytest.raises(T.NotSupported, match="expand_tiles"):
+        pipeline.build_plan(stream, tuning=T.Tuning(write_mode="tiles"))
+    plan = pipeline.build_plan(stream, tuning=T.Tuning(tile_mode="lane"))
+    assert plan.signature.scans[0].cfg.tile_auto == "lane"
+    # a cfg that reaches the write stage some other way is refused there
+    from jpeggpu_tpu_torch.ops import write as TW
+
+    with pytest.raises(T.NotSupported):
+        TW.resolve_tile_mode("auto", "lane")
+    assert TW.resolve_tile_mode("auto", "super") == "super"
+
+
 def test_decode_matches_golden(data_420_rst2, port_planes):
     for a, b in zip(golden.decode(data_420_rst2), port_planes):
         assert np.array_equal(a, b)
@@ -117,6 +187,7 @@ def test_import_without_jax_triton_or_nvcc():
         "import jpeggpu_tpu_torch.ops.dc, jpeggpu_tpu_torch.ops.transpose\n"
         "import jpeggpu_tpu_torch.golden, jpeggpu_tpu_torch.encoder\n"
         "import jpeggpu_tpu_torch.native, jpeggpu_tpu_torch.utils.color\n"
+        "import jpeggpu_tpu_torch.config, jpeggpu_tpu_torch.ops.write\n"
         "assert not jpeggpu_tpu_torch.kernels._functions\n"
         "assert sorted(T.__all__) == sorted(set(T.__all__))\n"
         "assert all(hasattr(T, n) for n in T.__all__)\n"
@@ -196,7 +267,10 @@ def test_wrappers_refuse_other_devices(data_420_rst2):
             torch.zeros(64, dtype=torch.int16, device="meta"),
             staged["qtables"][0], 1, 1, 1, 0, 1, 1,
             torch.zeros(1, dtype=torch.int16))
+    with pytest.raises(ValueError, match="unsupported device"):
+        TH.decode_write_emit(cfg, arrs, ctx, meta, meta, meta, meta)
     assert TH.subseq_pass.launches == 0 and TH.decode_write.launches == 0
+    assert TH.decode_write_emit.launches == 0
     assert tidct.idct_stream_to_plane.launches == 0
 
 
