@@ -7,7 +7,7 @@ Drives `jpeggpu_tpu_torch` end to end and fails (non-zero exit, no result
 line) on the first phase that fails; nothing is caught and carried past:
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. builds the six CUDA kernels from `jpeggpu_tpu_torch/kernels/csrc` and
+2. builds the eight CUDA kernels from `jpeggpu_tpu_torch/kernels/csrc` and
    the native host destuffer (the run fails where that one is missing, so
    that every host time below is the native destuffer's);
 3. small streams made with the port's encoder from a numpy seed (4:2:0 with
@@ -15,8 +15,12 @@ line) on the first phase that fails; nothing is caught and carried past:
    decode on the card == the port's numpy golden decoder, exactly, on the
    default path and again under a plan built with
    `Tuning(write_mode="tiles", tile_mode="super")` (the records write
-   path), there also a flat low-entropy image, whose lanes drain through
-   the leftover scatter, and a garbage scan body;
+   path) and again with `tile_mode="lane"` (its per-lane tile shape),
+   there also a flat low-entropy image, whose lanes drain through the
+   leftover scatter, and a garbage scan body; K7 and K8 are also held
+   against their plain versions on made-up inputs that no decoder emits
+   (sums that wrap, first data units out of range, windows that leave the
+   lanes);
 4. a 4032x3024 (12 MP) interleaved 4:2:0 JPEG, restart interval 252,
    quality 90, made from a seed: a strip of MCU rows is encoded with the
    numpy encoder and its restart segments are repeated to 189 rows. At
@@ -30,16 +34,25 @@ line) on the first phase that fails; nothing is caught and carried past:
    against the plain path (the same pipeline on CPU tensors);
 5. the main paths, each with every launch count set to 0 just before and
    read just after: `jpeggpu_tpu_torch.decode(data)` must launch K1, K2
-   and K3 and none of K4-K6; `decode_jpeg_device(data, plan=build_plan(
+   and K3 and none of K4-K8; `decode_jpeg_device(data, plan=build_plan(
    parse(data), tuning=Tuning(write_mode="tiles")))`, and a `Decoder`
    under `set_default_tuning`, must launch K1, K4, K5, K6 and K3 and not
-   K2, and give the same planes;
+   K2, K7 or K8, and give the same planes;
+5b. the sparse 12 MP image: the same generator and seed at quality 30,
+   where `tile_mode="auto"` must resolve to the per-lane shape. At its
+   shapes K7 (from the preparation of K4's records) and K8 (from K7's
+   tiles) are held against their plain versions (exact). Then the third
+   main path, `decode_jpeg_device(data, plan=build_plan(parse(data),
+   tuning=Tuning(write_mode="tiles")))` on this image, counted as above:
+   it must launch K1, K4, K7, K8 and K3 and none of K2, K5, K6, and equal
+   the default path and the plain path. The default path, the forced
+   supertile shape and `auto` are timed on this image side by side;
 6. times, each beside its bound. Every kernel is timed twice with the
    host's enqueue cost off the clock (launches queued behind a spinning
    kernel): with L2 warm (CUDA events around 20 identical launches, median
    of 5 such runs) and with L2 cold (128 MB written between launches, each
    launch between its own pair of events, median of 20). `ms` in the
-   `kernels` line is the cold time for K2-K6, whose inputs in a decode
+   `kernels` line is the cold time for K2-K8, whose inputs in a decode
    were last touched tens of MB earlier, and the warm time for K1, whose
    rounds follow each other over the same 2.6 MB of words; both times are
    in the line. The kernels' times inside a real decode (the profiler's)
@@ -98,11 +111,20 @@ K3_OPS_PER_PIXEL = 25
 # supertile row and the pack, 3, plus the window walk per 8 cells
 K5_OPS_PER_RECORD, K5_OPS_PER_CELL = 10, 2
 K6_OPS_PER_CELL = 4
+# K7, from kernels/csrc/tiles.cu: K5's counts. K8, from
+# kernels/csrc/expand_tiles.cu: per output cell one add per matching tile
+# row and the pack, and per thread (8 cells) a subtract and two compares for
+# each of the 64 candidate lanes
+K7_OPS_PER_RECORD, K7_OPS_PER_CELL = 10, 2
+K8_OPS_PER_CELL, K8_OPS_PER_CANDIDATE = 4, 3
 
 TILES = T.Tuning(write_mode="tiles", tile_mode="super")
+LANE = T.Tuning(write_mode="tiles", tile_mode="lane")
+AUTO = T.Tuning(write_mode="tiles")
 
 S420 = [(2, 2), (1, 1), (1, 1)]
 FULL_W, FULL_H, QUALITY = 4032, 3024, 90  # restart interval: one MCU row
+QUALITY_SPARSE = 30  # the same image with > 55 data units per subsequence
 
 
 def log(msg: str) -> None:
@@ -284,7 +306,8 @@ def phase_environment(dev: torch.device) -> str:
 def phase_build(dev: torch.device) -> None:
     built = ("jpeggpu_subseq_pass", "jpeggpu_decode_write",
              "jpeggpu_idct_stream_to_plane", "jpeggpu_emit_pass",
-             "jpeggpu_supertiles", "jpeggpu_expand_supertiles")
+             "jpeggpu_supertiles", "jpeggpu_expand_supertiles",
+             "jpeggpu_tiles", "jpeggpu_expand_tiles")
     for fn in built:
         kernels.get(fn)
     for entry in kernels.build_log:
@@ -334,6 +357,13 @@ def phase_small_streams(dev: torch.device, seed: int) -> None:
             f"lane(s) in the last scan")
         if name == "flat_gray_q50" and not W.scatter_leftover.lanes:
             raise AssertionError("the flat image took no leftover lane")
+        check_equal_numpy(name, decode_tiles(data, dev, LANE), expect)
+        log(f"small stream {name}: decode on {dev.type} through the records "
+            f"write path's per-lane shape == golden, "
+            f"{W.scatter_leftover.lanes} leftover lane(s) in the last scan")
+        if name == "flat_gray_q50" and not W.scatter_leftover.lanes:
+            raise AssertionError("the flat image took no leftover lane in "
+                                 "the per-lane shape")
     # geometry overrides: a supertile of 512 rows needs 128 KB of dynamic
     # shared memory in K5, a window of 3 and groups of 128 data units
     name, data = leftover_streams(seed)[0]
@@ -350,6 +380,45 @@ def phase_small_streams(dev: torch.device, seed: int) -> None:
         f"{W.scatter_leftover.lanes} leftover lane(s)")
     if not W.scatter_leftover.lanes:
         raise AssertionError("s_trim=128 sent no lane to the leftover scatter")
+
+
+def phase_lane_kernels_any_input(dev: torch.device, seed: int) -> None:
+    """K7 and K8 against their plain versions on made-up inputs that no
+    decoder emits: several records on one cell (sums that wrap), inert
+    slots, excluded lanes, rows outside the tile, first data units that are
+    negative or huge, windows that leave the lanes."""
+    rng = np.random.default_rng(seed)
+    lanes, s_cap = 256, 96
+    i32 = np.iinfo(np.int32)
+    for tile_d in (32, 96, 512):
+        du0 = np.sort(rng.integers(0, 4000, lanes)).astype(np.int32)
+        du0[[3, 77, 200]] = [-5, i32.max, i32.min]
+        wpos = (du0[None, :].astype(np.int64) * 64
+                + rng.integers(-256, (tile_d + 4) * 64, (s_cap, lanes)))
+        wpos[:, ::7] = wpos[:1, ::7] + rng.integers(0, 3, (s_cap, 1))
+        wpos = np.where(rng.random(wpos.shape) < 0.1, -1,
+                        wpos.clip(-1, i32.max)).astype(np.int32)
+        args = [torch.from_numpy(a).to(dev) for a in (
+            rng.integers(-32768, 32768, (s_cap, lanes)).astype(np.int16),
+            wpos, rng.integers(0, s_cap + 30, lanes).astype(np.int32), du0,
+            rng.random(lanes) < 0.8)]
+        tiles = W.tiles_from_records(*args, tile_d)
+        err7 = max_abs_err(tiles, W.tiles_from_records_plain(*args, tile_d))
+        n_groups = 40
+        q = rng.integers(-3, lanes // 32 + 2, n_groups).astype(np.int32)
+        stuffed = torch.from_numpy(rng.integers(
+            -32768, 32768, tuple(tiles.shape)).astype(np.int16)).to(dev)
+        err8 = 0
+        for t in (tiles, stuffed):
+            kargs = (t, args[3], torch.from_numpy(q).to(dev), n_groups)
+            err8 = max(err8, max_abs_err(W.expand_tiles(*kargs),
+                                         W.expand_tiles_plain(*kargs)))
+        sync(dev)
+        log(f"K7 / K8 on made-up inputs, tile_d {tile_d}: max_abs_err "
+            f"{err7} / {err8} against the plain versions")
+        if err7 or err8:
+            raise AssertionError("K7 or K8 differs from its plain version "
+                                 "on made-up inputs")
 
 
 def phase_kernels(dev: torch.device, data: bytes, card: str):
@@ -505,6 +574,28 @@ def host_ms(fn, dev: torch.device, reps: int = 7):
     return statistics.median(times), out
 
 
+def measure(dev, card, label, launch, plain, compare):
+    """One kernel against its plain version on the same tensors, then its
+    times: returns the kernel's result and its entry's measured keys."""
+    got = launch()
+    t0 = time.perf_counter()
+    ref = plain()
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = compare(got, ref)
+    del ref
+    warm_ms, call_ms = time_ms(launch, dev)
+    cold_ms = time_cold_ms(launch, dev)
+    log(f"{label}: max_abs_err {err}, {warm_ms:.4f} ms on the device "
+        f"with L2 warm, {cold_ms:.4f} ms cold ({call_ms:.4f} ms a single "
+        f"call), plain {plain_ms:.1f} ms  [{card}]")
+    if err:
+        raise AssertionError(f"{label} differs from its plain version")
+    return got, dict(max_abs_err=err, ms=cold_ms, plain_ms=plain_ms,
+                     library_ms=None, call_ms=call_ms, ms_warm_l2=warm_ms,
+                     ms_cold_l2=cold_ms)
+
+
 def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
                          decode_in_bytes):
     """K4, K5 and K6 at the 12 MP shapes, each fed by the real stage before
@@ -513,25 +604,6 @@ def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
     tcfg = pipeline.build_plan(plan.stream, tuning=TILES).signature.scans[0].cfg
     lanes, G, super_d = tcfg.lanes, tcfg.super_g, tcfg.super_d
     entries = []
-
-    def measure(label, launch, plain, compare):
-        got = launch()
-        t0 = time.perf_counter()
-        ref = plain()
-        sync(dev)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = compare(got, ref)
-        del ref
-        warm_ms, call_ms = time_ms(launch, dev)
-        cold_ms = time_cold_ms(launch, dev)
-        log(f"{label}: max_abs_err {err}, {warm_ms:.4f} ms on the device "
-            f"with L2 warm, {cold_ms:.4f} ms cold ({call_ms:.4f} ms a single "
-            f"call), plain {plain_ms:.1f} ms  [{card}]")
-        if err:
-            raise AssertionError(f"{label} differs from its plain version")
-        return got, dict(max_abs_err=err, ms=cold_ms, plain_ms=plain_ms,
-                         library_ms=None, call_ms=call_ms, ms_warm_l2=warm_ms,
-                         ms_cold_l2=cold_ms)
 
     # K4: the kernel leaves the slots at and past m[lane] unwritten, the
     # plain version fills them with the inert record: compare gated
@@ -542,7 +614,7 @@ def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
         return torch.where(slot < m[None, :], rec, H._REC_INERT)
 
     (rec, m), timing = measure(
-        "K4 decode_write_emit",
+        dev, card, "K4 decode_write_emit",
         lambda: H.decode_write_emit(tcfg, arrs, ctx, *states),
         lambda: H.decode_write_emit_plain(tcfg, arrs, ctx, *states),
         lambda got, ref: max(max_abs_err(got[1], ref[1]),
@@ -572,7 +644,7 @@ def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
         f"{int(leftover.sum())} leftover lane(s); preparation "
         f"{prep_ms:.3f} ms on the host clock  [{card}]")
     stiles, timing = measure(
-        "K5 supertiles_from_records",
+        dev, card, "K5 supertiles_from_records",
         lambda: W.supertiles_from_records(val_rows, pk_rows, mmax_st, G,
                                           super_d),
         lambda: W.supertiles_from_records_plain(val_rows, pk_rows, mmax_st,
@@ -592,7 +664,7 @@ def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
 
     # K6, from K5's supertiles
     (rows, dcd), timing = measure(
-        "K6 expand_supertiles",
+        dev, card, "K6 expand_supertiles",
         lambda: W.expand_supertiles(stiles, base, q, n_groups, win,
                                     tcfg.group_du),
         lambda: W.expand_supertiles_plain(stiles, base, q, n_groups, win,
@@ -642,7 +714,9 @@ def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
 
 WRAPPERS = (H.subseq_pass, H.decode_write, I.idct_stream_to_plane,
             H.decode_write_emit, W.supertiles_from_records,
-            W.expand_supertiles)
+            W.expand_supertiles, W.tiles_from_records, W.expand_tiles)
+SUPER_KERNELS = ("supertiles_from_records", "expand_supertiles")
+LANE_KERNELS = ("tiles_from_records", "expand_tiles")
 
 
 def counted(fn):
@@ -705,12 +779,11 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
         f"launches), idct_stream_to_plane by first slot of the component: "
         f"{by_slot}")
     n_comps = len(T.parse(data).components)
-    records_kernels = ("decode_write_emit", "supertiles_from_records",
-                       "expand_supertiles")
+    records_kernels = ("decode_write_emit",) + SUPER_KERNELS
     if not (launches["subseq_pass"] >= 2 and launches["decode_write"] == 1
             and launches["idct_stream_to_plane"] == n_comps
             and len(by_slot) == n_comps and all(by_slot.values())
-            and not any(launches[k] for k in records_kernels)):
+            and not any(launches[k] for k in records_kernels + LANE_KERNELS)):
         raise AssertionError(f"the default path must launch K1, K2 and K3 "
                              f"and no other kernel: {launches} {by_slot}")
 
@@ -735,10 +808,12 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
         f"slot: {tby_slot}; {W.scatter_leftover.lanes} leftover lane(s)")
     if not (tlaunches["subseq_pass"] >= 2 and tlaunches["decode_write"] == 0
             and all(tlaunches[k] == 1 for k in records_kernels)
+            and not any(tlaunches[k] for k in LANE_KERNELS)
             and tlaunches["idct_stream_to_plane"] == n_comps
             and len(tby_slot) == n_comps and all(tby_slot.values())):
         raise AssertionError(f"the records path must launch K1, K4, K5, K6 "
-                             f"and K3, and not K2: {tlaunches} {tby_slot}")
+                             f"and K3, and not K2, K7 or K8: {tlaunches} "
+                             f"{tby_slot}")
     check_equal_numpy("12 MP records path vs default path", tplanes, planes)
     log("12 MP decode through the records write path == default path == "
         "plain path")
@@ -873,6 +948,214 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
                           "::idct_stream_to_plane_kernel"))
 
 
+def lane_path_kernels(dev: torch.device, data: bytes, card: str):
+    """K7 and K8 at the shapes of the sparse 12 MP image, each fed by the
+    real stage before it and held against its plain version; then the
+    whole per-lane write stage against K2's stream. Returns the two kernel
+    entries (without launch counts)."""
+    plan = pipeline.build_plan(T.parse(data), tuning=AUTO)
+    sp, = plan.signature.scans
+    cfg = sp.cfg
+    scan, = plan.stream.scans
+    avg_du = scan.total_data_units / scan.num_subsequences
+    log(f"sparse 12 MP shapes: {len(data)} bytes, {scan.num_subsequences} "
+        f"subsequences in lanes {cfg.lanes}, {avg_du:.1f} data units per "
+        f"subsequence, tile_auto {cfg.tile_auto}, tile_d {cfg.tile_d}")
+    if W.resolve_tile_mode(cfg.tuning.tile_mode, cfg.tile_auto) != "lane":
+        raise AssertionError("tile_mode='auto' did not resolve to the "
+                             "per-lane shape on the sparse image")
+    staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan), dev)
+    arrs = staged["scans"][0]
+    ctx = H.make_ctx(cfg, arrs)
+    p, c, z, n = H.sync_states(cfg, arrs, ctx)
+    states = (p, c, z, H.symbol_offsets(cfg, arrs, n))
+    coeffs = H.decode_write(cfg, arrs, ctx, *states)
+    rec, m = H.decode_write_emit(cfg, arrs, ctx, *states)
+    pos0 = arrs.seg_of_subseq * cfg.positions_per_seg + states[3]
+    total, tile_d, lanes = cfg.total_positions, cfg.tile_d, cfg.lanes
+    prep_ms, prep = host_ms(lambda: W.lane_records(
+        rec, m, pos0 >> 6, pos0, total, tile_d), dev)
+    val, wpos, du0, q, leftover, n_groups = prep
+    include = ~leftover
+    log(f"per-lane shape: {int(m.sum())} records of {count_symbols(coeffs)} "
+        f"symbols, at most {int(m.max())} in a lane, emission buffer "
+        f"{tuple(rec.shape)}, {n_groups} groups, {int(leftover.sum())} "
+        f"leftover lane(s); preparation {prep_ms:.3f} ms on the host clock  "
+        f"[{card}]")
+    entries = []
+
+    # K7, from the preparation of K4's records
+    tiles, timing = measure(
+        dev, card, "K7 tiles_from_records",
+        lambda: W.tiles_from_records(val, wpos, m, du0, include, tile_d),
+        lambda: W.tiles_from_records_plain(val, wpos, m, du0, include,
+                                           tile_d),
+        max_abs_err)
+    slot = torch.arange(rec.shape[0], dtype=torch.int32, device=dev)[:, None]
+    d_rel = (wpos >> 6) - du0[None, :]
+    placed = int((include[None, :] & (slot < m[None, :]) & (wpos >= 0)
+                  & (d_rel >= 0) & (d_rel < tile_d)).sum())
+    b_ms, b_by = bound((2 + 4) * placed + nbytes(m, du0, include) + 64 * 4
+                       + nbytes(tiles),
+                       placed * K7_OPS_PER_RECORD
+                       + tiles.numel() * K7_OPS_PER_CELL)
+    log(f"  {placed} live records, {nbytes(tiles) / 1e6:.1f} MB of tiles")
+    entries.append(dict(
+        name="tiles_from_records", route="cuda",
+        source="jpeggpu_tpu_torch/kernels/csrc/tiles.cu",
+        replaces="jpeggpu_tpu/ops/write_pallas.py:210", bound_ms=b_ms,
+        bound_by=b_by, records=placed, **timing))
+
+    # K8, from K7's tiles
+    rows, timing = measure(
+        dev, card, "K8 expand_tiles",
+        lambda: W.expand_tiles(tiles, du0, q, n_groups),
+        lambda: W.expand_tiles_plain(tiles, du0, q, n_groups), max_abs_err)
+    # tile rows that match an output row: row d of lane l names data unit
+    # du0[l] + d, and is read iff l lies in the window of that unit's group
+    j = du0[:, None].to(torch.int64) + torch.arange(tile_d, device=dev)
+    first = q.to(torch.int64)[(j // 128).clamp(0, n_groups - 1)] * 32
+    lane = torch.arange(lanes, device=dev)[:, None]
+    matched = int(((j < rows.shape[0]) & (lane >= first)
+                   & (lane < first + 64)).sum())
+    b_ms, b_by = bound(128 * matched + nbytes(du0, q, rows),
+                       rows.numel() * K8_OPS_PER_CELL
+                       + rows.shape[0] * 8 * 64 * K8_OPS_PER_CANDIDATE)
+    log(f"  {matched} of {lanes * tile_d} tile rows match an output row "
+        f"({matched / rows.shape[0]:.2f} per row)")
+    entries.append(dict(
+        name="expand_tiles", route="cuda",
+        source="jpeggpu_tpu_torch/kernels/csrc/expand_tiles.cu",
+        replaces="jpeggpu_tpu/ops/write_pallas.py:685", bound_ms=b_ms,
+        bound_by=b_by, tile_rows_read=matched, **timing))
+    for e in entries:
+        log(f"  {e['name']}: bound {e['bound_ms']:.4f} ms by {e['bound_by']}")
+
+    # the stage per step, then whole, against the direct write
+    stages = {}
+    stages["decode_write_emit"], _ = host_ms(
+        lambda: H.decode_write_emit(cfg, arrs, ctx, *states), dev)
+    stages["lane_records (preparation)"] = prep_ms
+    stages["tiles_from_records"], _ = host_ms(
+        lambda: W.tiles_from_records(val, wpos, m, du0, include, tile_d), dev)
+    stages["expand_tiles"], _ = host_ms(
+        lambda: W.expand_tiles(tiles, du0, q, n_groups), dev)
+    stages["scatter_leftover"], _ = host_ms(lambda: W.scatter_leftover(
+        rows.view(-1), rec, m, pos0, leftover, total), dev)
+    stages["decode_write_tiles (all of the above)"], (tcoeffs, none) = host_ms(
+        lambda: W.decode_write_tiles(cfg, arrs, ctx, *states, return_dc=True),
+        dev)
+    stages["decode_write (K2), for comparison"], _ = host_ms(
+        lambda: H.decode_write(cfg, arrs, ctx, *states), dev)
+    for name, ms in stages.items():
+        log(f"per-lane stage {name}: {ms:.3f} ms  [{card}]")
+    err = max_abs_err(tcoeffs, coeffs)
+    log(f"per-lane write stage (K4 + preparation + K7 + K8 + leftover, "
+        f"{W.scatter_leftover.lanes} leftover lane(s)): max_abs_err {err} "
+        f"against K2's stream, no DC side vector: {none is None}")
+    if err or none is not None:
+        raise AssertionError("the per-lane write stage differs from K2")
+    return entries
+
+
+def phase_lane_path(dev: torch.device, data: bytes, card: str):
+    """This slice's main path on the sparse 12 MP image, with the launch
+    counts read around it, against the default path and the plain path;
+    then the default path, the forced supertile shape and `auto` on the
+    same image side by side."""
+    n_comps = len(T.parse(data).components)
+    planes, launches, by_slot = counted(lambda: decode_tiles(data, dev, AUTO))
+    log(f"per-lane path launches: {launches}, idct_stream_to_plane by first "
+        f"slot: {by_slot}; {W.scatter_leftover.lanes} leftover lane(s)")
+    if not (launches["subseq_pass"] >= 2
+            and all(launches[k] == 1
+                    for k in ("decode_write_emit",) + LANE_KERNELS)
+            and not any(launches[k]
+                        for k in ("decode_write",) + SUPER_KERNELS)
+            and launches["idct_stream_to_plane"] == n_comps
+            and len(by_slot) == n_comps and all(by_slot.values())):
+        raise AssertionError(f"the per-lane path must launch K1, K4, K7, K8 "
+                             f"and K3, and not K2, K5 or K6: {launches} "
+                             f"{by_slot}")
+    check_equal_numpy("sparse 12 MP per-lane path vs default path", planes,
+                      T.decode(data, device=dev))
+    t0 = time.perf_counter()
+    plain = decode_tiles(data, torch.device("cpu"), AUTO)
+    log(f"plain path (the same plan on CPU tensors) decoded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_equal_numpy("sparse 12 MP per-lane path vs plain path", planes,
+                      plain)
+    log("sparse 12 MP decode through tile_mode='auto' (per-lane) == default "
+        "path == plain path, planes "
+        + ", ".join(str(pl.shape) for pl in planes))
+
+    stream = T.parse(data)
+    mp = stream.size_x * stream.size_y / 1e6
+    base_tuning = T.default_tuning()
+    W.scatter_leftover.lanes = 0
+    decoders = {}
+    for label, tuning, own in (
+            ("sparse image, default path", base_tuning,
+             ("::decode_write_kernel",)),
+            ("sparse image, supertile shape", TILES,
+             ("::emit_pass_kernel", "::supertiles_kernel",
+              "::expand_supertiles_kernel")),
+            ("sparse image, auto = per-lane shape", AUTO,
+             ("::emit_pass_kernel", "::tiles_kernel",
+              "::expand_tiles_kernel"))):
+        T.set_default_tuning(tuning)
+        try:
+            got = T.decode(data, device=dev)
+            check_equal_numpy(label, got, planes)
+            decode_ms = end_to_end(dev, data, card, label,
+                                   lambda: T.decode(data, device=dev), mp)
+            plan = pipeline.build_plan(stream)
+            decoders[label] = T.Decoder(device=dev)
+            decoders[label].parse_header(data)
+            decoders[label].transfer()
+        finally:
+            T.set_default_tuning(base_tuning)
+        log(f"{label}: {W.scatter_leftover.lanes} leftover lane(s)")
+        staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan), dev)
+        profile_decode(
+            dev, card, label,
+            lambda: pipeline.decode_pipeline(plan.signature, staged["scans"],
+                                             staged["qtables"]),
+            decode_ms, ("::subseq_pass_kernel",) + own)
+
+    # the host clock drifts over a run: the three again, taking turns
+    turns = {label: [] for label in decoders}
+    for _ in range(15):
+        for label, d in decoders.items():
+            sync(dev)
+            t0 = time.perf_counter()
+            d.decode(keep_on_device=True)
+            sync(dev)
+            turns[label].append((time.perf_counter() - t0) * 1e3)
+    for label, d in decoders.items():
+        ms = sorted(turns[label])
+        log(f"{label}: decode from staged inputs, 15 turns with the other "
+            f"two: median {ms[7]:.2f} ms, quartiles {ms[3]:.2f} - "
+            f"{ms[11]:.2f} ms  [{card}]")
+        d.cleanup()
+    return launches, by_slot
+
+
+def make_image(seed: int, quality: int, strip_rows: int = 9):
+    """The 12 MP test image at `quality`: a strip of MCU rows encoded with
+    the numpy encoder, and the image that repeats its restart segments.
+    Returns (strip, image)."""
+    t0 = time.perf_counter()
+    strip_img = synthetic_image(16 * strip_rows, FULL_W, seed)
+    strip = encode(strip_img, EncodeSpec(
+        quality=quality, sampling=S420, restart_interval=FULL_W // 16))
+    data = repeat_strip(strip, FULL_H)
+    log(f"{FULL_W}x{FULL_H} JPEG at quality {quality}: {len(data)} bytes "
+        f"from a {strip_rows}-row strip, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return strip, data
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=2024)
@@ -881,43 +1164,50 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    width, height, strip_rows = FULL_W, FULL_H, 9
     t_start = time.perf_counter()
 
     card = phase_environment(dev)
     phase_build(dev)
     phase_small_streams(dev, args.seed)
+    phase_lane_kernels_any_input(dev, args.seed)
 
-    t0 = time.perf_counter()
-    strip_img = synthetic_image(16 * strip_rows, width, args.seed)
-    strip = encode(strip_img, EncodeSpec(
-        quality=QUALITY, sampling=S420, restart_interval=width // 16))
-    data = repeat_strip(strip, height)
-    log(f"{width}x{height} JPEG: {len(data)} bytes from a {strip_rows}-row "
-        f"strip, made in {time.perf_counter() - t0:.1f} s")
+    strip, data = make_image(args.seed, QUALITY)
     golden_strip = repeat_strip(strip, 48)
     strip_planes = golden.decode(golden_strip)
     check_equal_numpy("strip vs golden", T.decode(golden_strip, device=dev),
                       strip_planes)
     check_equal_numpy("strip vs golden, records path",
                       decode_tiles(golden_strip, dev), strip_planes)
-    log(f"{width}x48 strip at full row width: decode on {dev.type} == golden "
+    log(f"{FULL_W}x48 strip at full row width: decode on {dev.type} == golden "
         f"on the default path and through the records write path")
 
     entries = phase_kernels(dev, data, card)
     (launches, by_slot, tlaunches, tby_slot, decode_ms,
      tiles_decode_ms) = phase_main_path(dev, data, card)
     phase_where_time_goes(dev, data, card, decode_ms, tiles_decode_ms)
+
+    strip, sparse = make_image(args.seed, QUALITY_SPARSE)
+    golden_strip = repeat_strip(strip, 48)
+    check_equal_numpy("sparse strip vs golden, per-lane shape",
+                      decode_tiles(golden_strip, dev, AUTO),
+                      golden.decode(golden_strip))
+    log(f"{FULL_W}x48 sparse strip: decode on {dev.type} through "
+        f"tile_mode='auto' == golden")
+    entries += lane_path_kernels(dev, sparse, card)
+    llaunches, lby_slot = phase_lane_path(dev, sparse, card)
     for e in entries:
         # counted by the wrappers during each main path's run, K3 per
         # component; `launches` is the count on the path that is the
-        # kernel's own (K1-K3 the default path, K4-K6 the records path)
+        # kernel's own (K1-K3 the default path, K4-K6 the records path on
+        # the quality-90 image, K7-K8 the per-lane path on the sparse one)
         slot = e.pop("slot", None)
         on_default = launches[e["name"]] if slot is None else by_slot[slot]
         on_records = tlaunches[e["name"]] if slot is None else tby_slot[slot]
-        e["launches"] = on_default or on_records
+        on_lane = llaunches[e["name"]] if slot is None else lby_slot[slot]
+        e["launches"] = on_default or on_records or on_lane
         e["launches_default_path"] = on_default
         e["launches_records_path"] = on_records
+        e["launches_lane_path"] = on_lane
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -21,20 +21,23 @@ class Tuning:
         (the default) is the single writing-decode kernel that stores
         coefficients straight into the stream (``ops.huffman.decode_write``).
         "tiles" is the records path (``ops.write.decode_write_tiles``): the
-        writing decode emits packed records, records become supertiles,
-        supertiles are expanded into the dense stream and the DC side
-        vector; lanes that do not fit a supertile drain through a scatter.
+        writing decode emits packed records, records become tiles, tiles
+        are expanded into the dense stream; lanes that do not fit their
+        tile drain through a scatter.
       tile_mode: "auto" | "super" | "lane", shape of the records path's
         first assembly stage. "super" groups ``super_g`` consecutive lanes
-        into one ``(super_d, 64)`` supertile. "lane" (one tile per lane,
-        for sparse scans) is not available in this package yet and is
-        refused; "auto" takes the plan's per-scan choice
-        (``ScanConfig.tile_auto``) and is refused where that is "lane".
+        into one ``(super_d, 64)`` supertile and also yields the DC side
+        vector. "lane" gives every lane a ``(tile_d, 64)`` tile of its own
+        (``ScanConfig.tile_d``), for sparse scans where even two lanes
+        overflow a supertile. "auto" takes the plan's choice, made scan by
+        scan (``ScanConfig.tile_auto``): "lane" above 55 data units per
+        subsequence, else "super".
       write_chunk: slots per emission chunk; the record buffer's slot count
         is rounded up to a multiple of it (``ops.huffman._emit_cap``).
       s_trim: record slots per lane that the supertile assembly reads;
         lanes with more records drain through the leftover scatter, so
-        exactness never depends on it. A positive multiple of 128.
+        exactness never depends on it. A positive multiple of 128. The
+        per-lane shape reads the full depth and ignores it.
       group_du: data units per output group of the expand stage (a
         multiple of 128; 0 = auto, resolved by ``build_plan``).
       super_g, super_d, super_w: supertile geometry overrides (0 = auto,

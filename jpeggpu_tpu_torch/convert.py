@@ -10,9 +10,10 @@ and the quantisation tables. The JAX package's ``build_plan`` /
 can pull them out of a JAX plan and hand them over; with that both packages
 decode the same staged state. The intermediate arrays of the records write
 path cross the same way, as numpy, in both directions (:func:`to_torch`,
-:func:`to_numpy`): ``(rec, m)``, ``(val_rows, pk_rows, mmax_st)`` and
-``(stiles, base, q)`` have the same shapes, types and meaning in both
-packages. Nothing of the JAX package is imported here.
+:func:`to_numpy`): ``(rec, m)``, ``(val_rows, pk_rows, mmax_st)``,
+``(stiles, base, q)`` and the per-lane shape's ``(val, wpos, m, du0,
+include)`` and ``(tiles, du0, q)`` have the same shapes, types and meaning
+in both packages. Nothing of the JAX package is imported here.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ from .config import Tuning
 from .ops.huffman import ScanArrays, ScanConfig
 
 GEOMETRY_FIELDS = ("lanes", "num_segments", "du_per_mcu", "mcus_per_seg",
-                   "total_mcus", "comp_groups", "fast_tables", "super_g",
-                   "super_w", "super_d", "group_du", "tile_auto")
+                   "total_mcus", "comp_groups", "fast_tables", "tile_d",
+                   "super_g", "super_w", "super_d", "group_du", "tile_auto")
 _TUNING_FIELDS = tuple(f.name for f in dataclasses.fields(Tuning))
 
 
@@ -56,6 +57,7 @@ def scan_config(geometry: Mapping) -> ScanConfig:
         comp_groups=tuple(tuple(int(v) for v in g)
                           for g in geometry["comp_groups"]),
         fast_tables=bool(geometry["fast_tables"]),
+        tile_d=int(geometry["tile_d"]),
         super_g=int(geometry["super_g"]),
         super_w=int(geometry["super_w"]),
         super_d=int(geometry["super_d"]),

@@ -9,6 +9,12 @@ started together, in the package's build directory, and loaded with
 imported: a machine with no ``nvcc`` can import the package and run the
 plain versions on CPU tensors.
 
+Eight kernels: the sync round (``subseq_pass.cu``), the direct writing
+decode (``decode_write.cu``), the stream -> plane tail (``idct_stream.cu``),
+and the records write path: the emitting decode (``emit_pass.cu``), its
+supertile shape (``supertiles.cu``, ``expand_supertiles.cu``) and its
+per-lane shape for sparse scans (``tiles.cu``, ``expand_tiles.cu``).
+
 The wrappers that launch the kernels (and count their launches) live beside
 the plain PyTorch versions in ``ops/huffman.py``, ``ops/write.py`` and
 ``ops/idct.py``; they
@@ -50,9 +56,14 @@ _KERNELS = {
     "jpeggpu_emit_pass": (
         "emit_pass.cu", ("huffman_common.cuh",), [_P] * 17 + [_I] * 4 + [_P]),
     "jpeggpu_supertiles": (
-        "supertiles.cu", (), [_P] * 5 + [_I] * 4 + [_P]),
+        "supertiles.cu", ("tile_common.cuh",), [_P] * 5 + [_I] * 4 + [_P]),
     "jpeggpu_expand_supertiles": (
-        "expand_supertiles.cu", (), [_P] * 5 + [_I] * 5 + [_P]),
+        "expand_supertiles.cu", ("tile_common.cuh",),
+        [_P] * 5 + [_I] * 5 + [_P]),
+    "jpeggpu_tiles": (
+        "tiles.cu", ("tile_common.cuh",), [_P] * 7 + [_I] * 3 + [_P]),
+    "jpeggpu_expand_tiles": (
+        "expand_tiles.cu", ("tile_common.cuh",), [_P] * 4 + [_I] * 3 + [_P]),
 }
 
 _lock = threading.Lock()

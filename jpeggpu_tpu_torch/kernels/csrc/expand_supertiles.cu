@@ -22,21 +22,11 @@
 // lanes' span included), so it reads nearly all of them; `base` and `q`
 // come from L2.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "tile_common.cuh"
 
 namespace jpeggpu {
 
 constexpr int kExpandThreads = 256;
-
-__device__ inline void add_pair(uint32_t w, int& lo, int& hi) {
-  lo += static_cast<int16_t>(w & 0xFFFFu);
-  hi += static_cast<int16_t>(w >> 16);
-}
-
-__device__ inline uint32_t pack_pair(int lo, int hi) {
-  return (static_cast<uint32_t>(lo) & 0xFFFFu) | (static_cast<uint32_t>(hi) << 16);
-}
 
 __global__ void __launch_bounds__(kExpandThreads)
 expand_supertiles_kernel(const int16_t* __restrict__ stiles,

@@ -30,8 +30,7 @@
 // to mmax_st slots of every lane) are read once and every supertile, zeros
 // included, is written once: super_d * 128 bytes per G lanes.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "tile_common.cuh"
 
 namespace jpeggpu {
 
@@ -47,11 +46,7 @@ supertiles_kernel(const int16_t* __restrict__ val_rows,
   __shared__ uint8_t nat[64];        // zig-zag index -> raster index
   const int st = blockIdx.x;
   const int cells = super_d * 64;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) tile[i] = 0;
-  if (threadIdx.x < 64) {
-    nat[threadIdx.x] = static_cast<uint8_t>(natural[threadIdx.x]);
-  }
-  __syncthreads();
+  tile_begin(tile, cells, nat, natural);
 
   long long want = static_cast<long long>(mmax_st[st]) * G;
   const int ncols = want <= 0 ? 0 : (want < sg ? static_cast<int>(want) : sg);
@@ -70,22 +65,11 @@ supertiles_kernel(const int16_t* __restrict__ val_rows,
       const int val = static_cast<int16_t>(vws[k >> 1] >> sh);
       const int d = pk >> 6;
       if (i * 8 + k < ncols && pk >= 0 && val != 0 && d < super_d) {
-        atomicAdd(&tile[d * 64 + nat[pk & 63]], val);
+        tile_place(tile, nat, d, pk & 63, val);
       }
     }
   }
-  __syncthreads();
-
-  uint4* out8 = reinterpret_cast<uint4*>(out + static_cast<size_t>(st) * cells);
-  for (int i = threadIdx.x; i < cells / 8; i += blockDim.x) {
-    const int32_t* t = tile + i * 8;
-    uint4 w;
-    w.x = (static_cast<uint32_t>(t[0]) & 0xFFFFu) | (static_cast<uint32_t>(t[1]) << 16);
-    w.y = (static_cast<uint32_t>(t[2]) & 0xFFFFu) | (static_cast<uint32_t>(t[3]) << 16);
-    w.z = (static_cast<uint32_t>(t[4]) & 0xFFFFu) | (static_cast<uint32_t>(t[5]) << 16);
-    w.w = (static_cast<uint32_t>(t[6]) & 0xFFFFu) | (static_cast<uint32_t>(t[7]) << 16);
-    out8[i] = w;
-  }
+  tile_store(tile, cells, out + static_cast<size_t>(st) * cells);
 }
 
 }  // namespace jpeggpu

@@ -59,6 +59,11 @@ class ScanConfig:
     # canonical-limit fast symbol decode; the host parser sets this False
     # when a table's code space saturates (tables.HuffmanTable.saturated)
     fast_tables: bool = True
+    # tile depth of the records write path's per-lane shape (ops/write.py):
+    # data-unit rows of one lane's tile, sized by build_plan from the
+    # stream's average data units per subsequence; lanes that span more
+    # drain through the leftover scatter
+    tile_d: int = 96
     # supertile geometry of the records write path (ops/write.py), sized by
     # build_plan from the stream's average data units per subsequence:
     # super_g consecutive lanes share one (super_d, 64) supertile; the

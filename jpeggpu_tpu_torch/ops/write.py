@@ -1,8 +1,10 @@
-"""The records write path: emitted records -> supertiles -> dense stream.
+"""The records write path: emitted records -> tiles -> dense stream.
 
 The alternative to the direct writing decode (``ops.huffman.decode_write``),
 selected by ``Tuning(write_mode="tiles")``. It materialises the coefficient
-stream in three device stages, with plain tensor code between them:
+stream in three device stages, with plain tensor code between them. The
+middle stages come in two shapes, chosen per scan by ``Tuning.tile_mode``
+(:func:`resolve_tile_mode`). The supertile shape:
 
 1. *Records* come from ``ops.huffman.decode_write_emit`` (kernel K4): value
    and lane-local stream position of each committed symbol at
@@ -21,11 +23,26 @@ stream in three device stages, with plain tensor code between them:
    window) are *leftover*: excluded from the supertiles and added by
    :func:`scatter_leftover`, correct for any input.
 
-:func:`assemble_supertiles` is the whole assembly, :func:`decode_write_tiles`
-the drop-in for ``decode_write``. Function names and argument order follow
-the JAX package's ``ops/write_pallas.py``; the operand-type options of its
-one-hot matrix products have no counterpart, because K5 is a placement in
-shared memory and K6 a row gather: neither multiplies.
+:func:`assemble_supertiles` is that whole assembly.
+
+The per-lane shape, for sparse scans (many data units per subsequence, where
+even two lanes would overflow a supertile), :func:`assemble_tiles`:
+
+2. :func:`tiles_from_records` (kernel K7): each lane's records become one
+   ``(tile_d, 64)`` *tile* of its own: row ``d`` holds data unit
+   ``du0[lane] + d``, in natural order.
+3. :func:`expand_tiles` (kernel K8): every dense output row gathers and
+   sums the tile rows that name its data unit, from a window of 64 lanes
+   per group of 128 output rows. It has no DC side vector;
+   ``undelta_dc_values`` reads the DC column of the stream instead.
+4. Leftover here: a lane that spans more than ``tile_d`` data units, or
+   lies past its first group's window; :func:`scatter_leftover` again.
+
+:func:`decode_write_tiles` is the drop-in for ``decode_write`` over both.
+Function names and argument order follow the JAX package's
+``ops/write_pallas.py``; the operand-type options of its one-hot matrix
+products have no counterpart, because K5 and K7 are placements in shared
+memory and K6 and K8 row gathers: none multiplies.
 """
 
 from __future__ import annotations
@@ -37,10 +54,14 @@ import torch
 
 from .. import constants as C
 from .. import kernels
-from ..errors import NotSupported
 from .huffman import decode_write_emit, unpack_record
 
 _MAX_SUPER_D = 512  # pk packs (d_rel << 6) | iz into a non-negative int16
+_MAX_TILE_D = 512  # K7 keeps tile_d * 256 bytes of shared memory per block
+# the per-lane shape's expand stage: data units per output group, and lanes
+# per slab (a group gathers from two aligned slabs = 64 candidate lanes)
+_GROUP_DU = 128
+_SLAB = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -342,6 +363,246 @@ def assemble_supertiles(rec, m, du0_raw, pos0, total: int, G: int, W: int,
     return out_flat[:total]
 
 
+# --- K7: records -> one tile per lane ----------------------------------------
+
+def tiles_from_records_plain(val, wpos, m, du0, include,
+                             tile_d: int = 96) -> torch.Tensor:
+    """Plain version of :func:`tiles_from_records`: one ``index_add_`` over
+    all records, on whatever device holds the tensors."""
+    s_cap, lanes = val.shape
+    dev = val.device
+    w = wpos.to(torch.int64)
+    slot = torch.arange(s_cap, device=dev)[:, None]
+    d_rel = (w >> 6) - du0[None, :]
+    ok = (include[None, :] & (slot < m[None, :]) & (w >= 0) & (d_rel >= 0)
+          & (d_rel < tile_d))
+    nat = _natural(dev).to(torch.int64)
+    lane = torch.arange(lanes, device=dev)[None, :]
+    tgt = (lane * tile_d + d_rel) * 64 + nat[w & 63]
+    acc = torch.zeros(lanes * tile_d * 64, dtype=torch.int32, device=dev)
+    acc.index_add_(0, torch.where(ok, tgt, 0).reshape(-1),
+                   torch.where(ok, val, 0).to(torch.int32).reshape(-1))
+    return _wrap_i16(acc).view(lanes, tile_d, 64)
+
+
+def tiles_from_records(val: torch.Tensor, wpos: torch.Tensor,
+                       m: torch.Tensor, du0: torch.Tensor,
+                       include: torch.Tensor,
+                       tile_d: int = 96) -> torch.Tensor:
+    """Records -> int16[lanes, tile_d, 64] *natural-order* tiles, one per
+    lane.
+
+    ``val`` (int16) and ``wpos`` (int32) are ``[s_cap, lanes]``, slot-major
+    as the emission leaves them: value and global stream position of lane
+    ``l``'s record in slot ``s``, ``wpos`` -1 on inert slots. The record is
+    live iff ``include[l]``, ``s < m[l]``, ``wpos >= 0`` and its data-unit
+    row ``d_rel = (wpos >> 6) - du0[l]`` lies in ``[0, tile_d)``; it lands
+    at ``tile[l][d_rel][ORDER_NATURAL[wpos & 63]]``. Records that name the
+    same cell sum (int16 wrap), so a value-0 record never disturbs a cell
+    that holds a value. A lane with ``include`` false (a leftover lane)
+    gives an all-zero tile; every tile is written whole.
+
+    CUDA tensors: kernel K7 (``kernels/csrc/tiles.cu``; replaces the Pallas
+    kernel behind ``jpeggpu_tpu/ops/write_pallas.py: tiles_from_records``).
+    Bound by bytes: the live records are read once and every tile, zeros
+    included, is written once. CPU tensors: the plain version.
+    """
+    dev = val.device
+    if not 0 < tile_d <= _MAX_TILE_D:
+        raise ValueError(f"tile_d must be in 1..{_MAX_TILE_D}")
+    if dev.type == "cpu":
+        return tiles_from_records_plain(val, wpos, m, du0, include, tile_d)
+    if dev.type != "cuda":
+        raise ValueError(f"tiles_from_records: unsupported device {dev}")
+    where = "tiles_from_records"
+    s_cap, lanes = val.shape
+    _check(where, "val", val, dev, torch.int16, (s_cap, lanes))
+    _check(where, "wpos", wpos, dev, torch.int32, (s_cap, lanes))
+    _check(where, "m", m, dev, torch.int32, (lanes,))
+    _check(where, "du0", du0, dev, torch.int32, (lanes,))
+    _check(where, "include", include, dev, torch.bool, (lanes,))
+    out = torch.empty((lanes, tile_d, 64), dtype=torch.int16, device=dev)
+    fn = kernels.get("jpeggpu_tiles")
+    err = fn(val.data_ptr(), wpos.data_ptr(), m.data_ptr(), du0.data_ptr(),
+             include.data_ptr(), _natural(dev).data_ptr(), out.data_ptr(),
+             s_cap, lanes, tile_d, torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, where)
+    tiles_from_records.launches += 1
+    return out
+
+
+tiles_from_records.launches = 0
+
+
+# --- K8: per-lane tiles -> dense rows ----------------------------------------
+
+def expand_tiles_plain(tiles, du0, q, n_groups: int) -> torch.Tensor:
+    """Plain version of :func:`expand_tiles`: 64 masked row gathers summed
+    in int32, on whatever device holds the tensors."""
+    lanes, tile_d, _ = tiles.shape
+    dev = tiles.device
+    tiles2d = tiles.reshape(lanes * tile_d, 64)
+    j = torch.arange(n_groups * _GROUP_DU, device=dev).view(n_groups,
+                                                            _GROUP_DU)
+    acc = torch.zeros((n_groups * _GROUP_DU, 64), dtype=torch.int32,
+                      device=dev)
+    for k in range(2 * _SLAB):
+        lane = q.to(torch.int64) * _SLAB + k  # (n_groups,)
+        in_range = (lane >= 0) & (lane < lanes)
+        lane = lane.clamp(0, lanes - 1)
+        d = j - du0.to(torch.int64)[lane][:, None]
+        hit = in_range[:, None] & (d >= 0) & (d < tile_d)
+        row = (lane[:, None] * tile_d + d.clamp(0, tile_d - 1)).reshape(-1)
+        got = tiles2d.index_select(0, row).to(torch.int32)
+        acc += torch.where(hit.reshape(-1, 1), got, 0)
+    return _wrap_i16(acc)
+
+
+def expand_tiles(tiles: torch.Tensor, du0: torch.Tensor, q: torch.Tensor,
+                 n_groups: int) -> torch.Tensor:
+    """Per-lane tiles -> dense int16[n_groups * 128, 64] natural-order rows.
+
+    Output row ``j`` of group ``g = j // 128`` is the sum (int16 wrap) of
+    the rows ``d = j - du0[l]`` of the tiles of the 64 candidate lanes
+    ``l`` in ``[32 * q[g], 32 * q[g] + 64)`` for which ``0 <= d < tile_d``;
+    a row shared by two lanes (a subsequence that ends inside a data unit)
+    sums here, and the zero tile of an excluded lane matches harmlessly. A
+    candidate outside ``[0, lanes)`` contributes nothing. There is no DC
+    side output in this shape.
+
+    CUDA tensors: kernel K8 (``kernels/csrc/expand_tiles.cu``; replaces the
+    Pallas kernel behind ``jpeggpu_tpu/ops/write_pallas.py: expand_tiles``).
+    Bound by bytes: the matching tile rows are read once, the rows written
+    once. CPU tensors: the plain version.
+    """
+    dev = tiles.device
+    if dev.type == "cpu":
+        return expand_tiles_plain(tiles, du0, q, n_groups)
+    if dev.type != "cuda":
+        raise ValueError(f"expand_tiles: unsupported device {dev}")
+    where = "expand_tiles"
+    lanes, tile_d, cols = tiles.shape
+    if cols != 64 or n_groups <= 0:
+        raise ValueError(f"{where}: tiles of {cols} columns, {n_groups} "
+                         "groups")
+    _check(where, "tiles", tiles, dev, torch.int16, (lanes, tile_d, 64))
+    _check(where, "du0", du0, dev, torch.int32, (lanes,))
+    _check(where, "q", q, dev, torch.int32, (n_groups,))
+    if tiles.data_ptr() % 16:
+        raise ValueError(f"{where}: tiles must be 16-byte aligned (the "
+                         "kernel reads 16 bytes at a time)")
+    n_rows = n_groups * _GROUP_DU
+    rows = torch.empty((n_rows, 64), dtype=torch.int16, device=dev)
+    fn = kernels.get("jpeggpu_expand_tiles")
+    err = fn(tiles.data_ptr(), du0.data_ptr(), q.data_ptr(), rows.data_ptr(),
+             lanes, tile_d, n_rows, torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, where)
+    expand_tiles.launches += 1
+    return rows
+
+
+expand_tiles.launches = 0
+
+
+# --- the per-lane assembly around K7 and K8 (plain tensor code) -------------
+
+def _lane_extents(wpos, m, du0, tile_d: int):
+    """Per lane: whether its records span past its tile
+    (``span_over``), and the last data unit they reach (``max_du``, -1 for
+    a lane without records)."""
+    s_cap = wpos.shape[0]
+    slot = torch.arange(s_cap, dtype=torch.int32, device=wpos.device)[:, None]
+    valid = (slot < m[None, :]) & (wpos >= 0)
+    max_du = torch.where(valid, wpos >> 6, -1).amax(dim=0)
+    span_over = (max_du - du0) >= tile_d
+    return span_over, max_du
+
+
+def _window_over(du0, q_of_group, lanes: int) -> torch.Tensor:
+    """Lanes that lie above the 64-lane window of the first group they
+    touch. That group is the worst case, since ``q`` is nondecreasing along
+    the groups; and no lane lies below a window, because the running-max
+    search anchors each group's window at or before every lane that reaches
+    the group."""
+    n_groups = q_of_group.shape[0]
+    g_first = torch.div(du0, _GROUP_DU, rounding_mode="floor").clamp(
+        0, n_groups - 1)
+    lane = torch.arange(lanes, dtype=torch.int32, device=du0.device)
+    return (lane - _SLAB * q_of_group[g_first.to(torch.int64)]) >= 2 * _SLAB
+
+
+def _slab_index(du0, max_du, include, lanes: int,
+                n_groups: int) -> torch.Tensor:
+    """q[g]: the aligned first slab of output group g's window, anchored at
+    the first *included* lane whose records reach the group (so that one
+    long leftover lane cannot drag the window away). Clipped to ``lanes //
+    32 - 2`` so that a window never leaves the lanes."""
+    reach = torch.cummax(torch.where(include, max_du, -1), dim=0).values
+    thresholds = torch.arange(n_groups, dtype=reach.dtype,
+                              device=reach.device) * _GROUP_DU
+    l0 = torch.searchsorted(reach.contiguous(), thresholds)
+    return torch.div(l0, _SLAB, rounding_mode="floor").clamp(
+        0, max(lanes // _SLAB - 2, 0)).to(torch.int32)
+
+
+def lane_records(rec, m, du0_raw, pos0, total: int, tile_d: int = 96):
+    """The preparation in front of K7 and K8: the unpacked records, which
+    lanes are leftover and the expand windows.
+
+    Returns ``(val, wpos, du0, q, leftover, n_groups)``: ``val`` / ``wpos``
+    (int16 / int32 ``[s_cap, lanes]``, value and global position, -1 on
+    inert slots) and ``du0`` (int32[lanes], nondecreasing) for
+    :func:`tiles_from_records`, whose ``include`` is ``~leftover``; ``q``
+    (int32[n_groups]) for :func:`expand_tiles`; the leftover lane mask
+    (bool[lanes]) and the group count. The full-depth record buffer is
+    unpacked up front: the scans that take this shape are sparse, with few
+    lanes and few records.
+    """
+    lanes = rec.shape[1]
+    if total % C.DATA_UNIT_SIZE or lanes % _SLAB:
+        raise ValueError(f"{lanes} lanes in slabs of {_SLAB}, {total} "
+                         "positions")
+    v32, wl = unpack_record(rec)
+    val = v32.to(torch.int16)
+    wpos = torch.where(wl >= 0, wl + pos0[None, :], -1)
+    del v32, wl
+    n_du = total // C.DATA_UNIT_SIZE
+    # emitted positions can reach total + 62 (zero-value symbols clamped at
+    # the last segment's bound): pad so their rows exist, plus a drop slot
+    n_groups = -(-(n_du + 2) // _GROUP_DU)
+    # du0 must be nondecreasing for the window search: it is for valid
+    # streams; a lane that the running max moves is routed to leftover
+    du0 = torch.cummax(du0_raw, dim=0).values
+    unsorted = du0 != du0_raw
+
+    span_over, max_du = _lane_extents(wpos, m, du0, tile_d)
+    q1 = _slab_index(du0, max_du, ~(span_over | unsorted), lanes, n_groups)
+    # recordless lanes (padding, or lanes clamped away whole) have nothing
+    # to place and are never leftover
+    leftover = (span_over | unsorted | _window_over(du0, q1, lanes)) & (m > 0)
+    # the final q can only move windows upward: every lane that passed the
+    # q1 check still fits
+    q = _slab_index(du0, max_du, ~leftover, lanes, n_groups)
+    return val, wpos, du0, q, leftover, n_groups
+
+
+def assemble_tiles(rec, m, du0_raw, pos0, total: int,
+                   tile_d: int = 96) -> torch.Tensor:
+    """Per-lane record assembly: preparation, K7, K8, leftover.
+
+    Arguments as :func:`assemble_supertiles`. Returns int16[total]
+    stream-order coefficients, natural order within each data unit, DC
+    still difference-coded. Leftover lanes drain through
+    :func:`scatter_leftover` at its default trim.
+    """
+    val, wpos, du0, q, leftover, n_groups = lane_records(
+        rec, m, du0_raw, pos0, total, tile_d)
+    tiles = tiles_from_records(val, wpos, m, du0, ~leftover, tile_d)
+    out_flat = expand_tiles(tiles, du0, q, n_groups).view(-1)
+    scatter_leftover(out_flat, rec, m, pos0, leftover, total)
+    return out_flat[:total]
+
+
 def scatter_leftover(out_flat, rec, m, pos0, leftover, total: int,
                      s_trim: int = 512, dc_flat=None) -> None:
     """Add the records of the leftover lanes to ``out_flat`` (and their DC
@@ -391,19 +652,12 @@ scatter_leftover.lanes = 0
 
 
 def resolve_tile_mode(mode: str, auto_choice: str = "super") -> str:
-    """``Tuning.tile_mode`` -> the first assembly stage's shape. "auto"
-    defers to the plan's per-scan choice (``ScanConfig.tile_auto``). The
-    per-lane shape is refused: its two kernels (``tiles_from_records`` and
-    ``expand_tiles`` of the reference's ``ops/write_pallas.py``) are not in
-    this package yet."""
-    resolved = auto_choice if mode == "auto" else mode
-    if resolved != "super":
-        raise NotSupported(
-            f"tile_mode {mode!r} resolves to the per-lane tile shape "
-            f"({resolved!r}), whose kernels tiles_from_records and "
-            "expand_tiles are not ported; use tile_mode='super' or "
-            "write_mode='fused'")
-    return resolved
+    """``Tuning.tile_mode`` -> the first assembly stage's shape, "super" or
+    "lane". "auto" defers to the plan's per-scan choice
+    (``ScanConfig.tile_auto``): ``build_plan`` picks "lane" for sparse
+    scans, where even a two-lane group would span more than a supertile
+    holds and nearly every lane would drain through the leftover scatter."""
+    return auto_choice if mode == "auto" else mode
 
 
 def decode_write_tiles(cfg, arrs, ctx, p, c, z, n_off,
@@ -411,11 +665,16 @@ def decode_write_tiles(cfg, arrs, ctx, p, c, z, n_off,
     """Drop-in for ``ops.huffman.decode_write`` through the records path.
 
     With ``return_dc`` returns ``(coeffs, dc)`` where ``dc`` is the
-    per-data-unit difference-coded DC side vector."""
-    resolve_tile_mode(cfg.tuning.tile_mode, cfg.tile_auto)
+    supertile shape's per-data-unit difference-coded DC side vector, or
+    ``None`` in the per-lane shape, which has none: callers then take the
+    DC column from the stream."""
     rec, m = decode_write_emit(cfg, arrs, ctx, p, c, z, n_off)
     pos0 = arrs.seg_of_subseq * cfg.positions_per_seg + n_off
-    return assemble_supertiles(
-        rec, m, pos0 >> 6, pos0, cfg.total_positions, cfg.super_g,
-        cfg.super_w, s_trim=cfg.tuning.s_trim, return_dc=return_dc,
-        group_du=cfg.group_du, super_d=cfg.super_d)
+    if resolve_tile_mode(cfg.tuning.tile_mode, cfg.tile_auto) == "super":
+        return assemble_supertiles(
+            rec, m, pos0 >> 6, pos0, cfg.total_positions, cfg.super_g,
+            cfg.super_w, s_trim=cfg.tuning.s_trim, return_dc=return_dc,
+            group_du=cfg.group_du, super_d=cfg.super_d)
+    coeffs = assemble_tiles(rec, m, pos0 >> 6, pos0, cfg.total_positions,
+                            cfg.tile_d)
+    return (coeffs, None) if return_dc else coeffs

@@ -9,9 +9,13 @@ validity is data-driven, see ``ops.huffman.make_ctx``). The device chain is
 
 and runs eagerly on the device that holds the staged inputs. Under a plan
 built with ``Tuning(write_mode="tiles")`` the write stage is the records
-path instead (``ops/write.py``): decode_write_emit (K4) ->
-supertiles_from_records (K5) -> expand_supertiles (K6) -> leftover scatter,
-whose DC side vector feeds undelta_dc_values.
+path instead (``ops/write.py``): decode_write_emit (K4), then, per scan, one
+of two tile shapes (``Tuning.tile_mode``; "auto" takes the scan's
+``ScanConfig.tile_auto``): supertiles_from_records (K5) ->
+expand_supertiles (K6) -> leftover scatter, whose DC side vector feeds
+undelta_dc_values; or, for sparse scans, tiles_from_records (K7) ->
+expand_tiles (K8) -> leftover scatter, which has no side vector
+(undelta_dc_values then reads the DC column of the stream).
 """
 
 from __future__ import annotations
@@ -80,11 +84,15 @@ class DecodePlan:
     stream: JpegStream
 
 
-def _supertile_geometry(scan: Scan, tuning: Tuning) -> Dict:
-    """Supertile geometry of the records write path for one scan, from the
-    stream's average data units per subsequence; the tuning's nonzero
-    fields override."""
+def _tile_geometry(scan: Scan, tuning: Tuning) -> Dict:
+    """Tile geometry of the records write path for one scan, in both its
+    shapes, from the stream's average data units per subsequence; the
+    tuning's nonzero fields override."""
     avg_du = scan.total_data_units / max(scan.num_subsequences, 1)
+    # per-lane shape: about 5x the average covers nearly every lane (the
+    # outliers drain through the leftover scatter), in four steps so that
+    # images of similar density share their shapes
+    tile_d = next((d for d in (32, 64, 96, 128) if d >= 5.0 * avg_du), 128)
     # G consecutive lanes share one super_d-row data-unit window. Target a
     # typical fill of about a third (G * avg_du <= 0.35 * super_d):
     # low-entropy lanes span several times the average, and one lane that
@@ -107,16 +115,14 @@ def _supertile_geometry(scan: Scan, tuning: Tuning) -> Dict:
     # sparse scans (avg_du above ~55): even a 2-lane group typically spans
     # the 128-row window; "auto" routes those to the per-lane tile shape
     tile_auto = "lane" if avg_du > 55.0 else "super"
-    return dict(super_g=super_g, super_w=super_w, super_d=super_d,
-                group_du=group_du, tile_auto=tile_auto)
+    return dict(tile_d=tile_d, super_g=super_g, super_w=super_w,
+                super_d=super_d, group_du=group_du, tile_auto=tile_auto)
 
 
 def build_plan(stream: JpegStream,
                tuning: Optional[Tuning] = None) -> DecodePlan:
     """Build the decode plan (static geometry) for a parsed stream under
-    ``tuning`` (default: the process default, ``config.default_tuning``).
-    Raises ``NotSupported`` where the tuning asks for the records write
-    path in a tile shape this package does not have."""
+    ``tuning`` (default: the process default, ``config.default_tuning``)."""
     if tuning is None:
         tuning = default_tuning()
     scans = []
@@ -147,10 +153,8 @@ def build_plan(stream: JpegStream,
             fast_tables=not any(scan.huff_tables[s].saturated
                                 for s in used_slots),
             tuning=tuning,
-            **_supertile_geometry(scan, tuning),
+            **_tile_geometry(scan, tuning),
         )
-        if tuning.write_mode == "tiles":
-            resolve_tile_mode(tuning.tile_mode, cfg.tile_auto)
         scans.append(ScanPlanStatic(
             cfg=cfg, num_mcus_x=scan.num_mcus_x, num_mcus_y=scan.num_mcus_y,
             comps=tuple(comps)))
@@ -260,18 +264,27 @@ def plan_buffer_size(plan: DecodePlan) -> int:
         coeffs = 2 * cfg.total_positions + 2 * total_du
         planes = sum(c[4] * c[5] for c in sp.comps)
         total += tables + staged + ctx + sync + write + coeffs + planes
-        if cfg.tuning.write_mode == "tiles":
-            # the emission buffer, the trimmed records in their widest
-            # intermediate form (unpacked value and position, data unit,
-            # row index, packed and interleaved rows), the supertiles, the
-            # padding of the dense rows and the DC side vector
-            s_cap = _emit_cap(cfg.tuning.write_chunk)
+        if cfg.tuning.write_mode != "tiles":
+            continue
+        s_cap = _emit_cap(cfg.tuning.write_chunk)
+        total += 4 * s_cap * cfg.lanes  # the emission buffer
+        if resolve_tile_mode(cfg.tuning.tile_mode, cfg.tile_auto) == "super":
+            # the trimmed records in their widest intermediate form
+            # (unpacked value and position, data unit, row index, packed
+            # and interleaved rows), the supertiles, the padding of the
+            # dense rows and the DC side vector
             trimmed = min(cfg.tuning.s_trim, s_cap) * cfg.lanes
             n_st = cfg.lanes // cfg.super_g
             pad_du = cfg.group_du + 2
-            total += (4 * s_cap * cfg.lanes + 28 * trimmed
-                      + 128 * cfg.super_d * n_st
+            total += (28 * trimmed + 128 * cfg.super_d * n_st
                       + 130 * pad_du + 2 * total_du)
+        else:
+            # the full-depth records unpacked (int16 value, int32 global
+            # position) and, at the widest moment, both unpacked halves as
+            # int32, the rebased position and its mask; one tile per lane;
+            # the padding of the dense rows (groups of 128 data units)
+            total += (6 + 13) * s_cap * cfg.lanes
+            total += 128 * cfg.tile_d * cfg.lanes + 128 * (128 + 2)
     return total
 
 

@@ -1,7 +1,7 @@
 """PyTorch port, entropy decode: kernels K1 (subseq_pass, through
 sync_states) and K2 (decode_write) in their plain versions on the CPU, and
-the records write path (K4-K6, ``Tuning(write_mode="tiles")``) over the
-same matrix of streams.
+the records write path (K4-K6 and, in its per-lane shape, K7-K8;
+``Tuning(write_mode="tiles")``) over the same matrix of streams.
 
 (a) Against the JAX package: the same staged inputs, handed over through
 ``convert.from_reference_inputs``, give the same converged states and the
@@ -154,6 +154,7 @@ def test_planes_match_golden(decoded, name):
 # --- the records write path over the matrix ----------------------------------
 
 _TILES = T.Tuning(write_mode="tiles", tile_mode="super")
+_LANE = T.Tuning(write_mode="tiles", tile_mode="lane")
 
 
 def _garbage_body(image):
@@ -180,19 +181,32 @@ _LEFTOVER_CASES = {
 }
 
 
-@pytest.mark.parametrize("name", CASES + list(_LEFTOVER_CASES))
+# the same streams under the per-lane tile shape (the trim is not its own)
+_LANE_CASES = ["lane-" + name for name in CASES + ["flat_gray_q50",
+                                                   "garbage_body"]]
+
+
+@pytest.mark.parametrize("name",
+                         CASES + list(_LEFTOVER_CASES) + _LANE_CASES)
 def test_records_path_matches_golden(decoded, test_image, name):
     """decode_jpeg_device under a plan built with write_mode="tiles": the
     planes equal golden's, and every scan's coefficients and DC side vector
     equal the direct write's, over the matrix, over two streams that send
-    lanes through the leftover scatter and over a garbage scan body."""
+    lanes through the leftover scatter and over a garbage scan body; in the
+    supertile shape and ("lane-" cases) in the per-lane shape, which has no
+    side vector."""
     from jpeggpu_tpu_torch.ops import write as TW
 
+    tuning = _TILES
+    if name.startswith("lane-"):
+        name, tuning = name[len("lane-"):], _LANE
     if name in _LEFTOVER_CASES:
-        make, tuning = _LEFTOVER_CASES[name]
+        make, trim_tuning = _LEFTOVER_CASES[name]
         data = make(test_image)
+        if tuning is _TILES:
+            tuning = trim_tuning
     else:
-        data, tuning = decoded(name)["data"], _TILES
+        data = decoded(name)["data"]
     plan = pipeline.build_plan(T.parse(data), tuning=tuning)
     staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan),
                                    torch.device("cpu"))
@@ -206,8 +220,11 @@ def test_records_path_matches_golden(decoded, test_image, name):
         expect, none = TH.decode_scan(fsp.cfg, arrs, return_dc=True)
         assert none is None and coeffs.dtype == torch.int16
         assert np.array_equal(coeffs.numpy(), expect.numpy())
-        assert np.array_equal(dc.numpy()[:expect.numel() // 64],
-                              expect.numpy()[::64])
+        if tuning is _LANE:
+            assert dc is None
+        else:
+            assert np.array_equal(dc.numpy()[:expect.numel() // 64],
+                                  expect.numpy()[::64])
     planes = pipeline.decode_jpeg_device(data, device="cpu", plan=plan)
     expect = golden.decode(data)
     assert len(planes) == len(expect)

@@ -97,25 +97,41 @@ def test_default_tuning_reaches_the_decoder(data_420_rst2, port_planes):
     assert pipeline.plan_buffer_size(tiles) > pipeline.plan_buffer_size(plan)
 
 
-def test_per_lane_tile_shape_is_refused(data_420_rst2):
+def test_per_lane_tile_shape_builds_and_decodes(data_420_rst2, port_planes):
     """tile_mode="lane", and an "auto" that resolves to it on a sparse
-    scan, raise NotSupported naming the missing kernels: no quiet other
-    path. The default write mode is untouched by tile_mode."""
+    scan, build a plan and decode to golden. The default write mode is
+    untouched by tile_mode."""
     lane = T.Tuning(write_mode="tiles", tile_mode="lane")
-    with pytest.raises(T.NotSupported, match="tiles_from_records"):
-        pipeline.build_plan(T.parse(data_420_rst2), tuning=lane)
+    plan = pipeline.build_plan(T.parse(data_420_rst2), tuning=lane)
+    cfg = plan.signature.scans[0].cfg
+    assert (cfg.tuning, cfg.tile_auto, cfg.tile_d) == (lane, "super", 64)
+    got = pipeline.decode_jpeg_device(data_420_rst2, device="cpu", plan=plan)
+    assert all(np.array_equal(a, b) for a, b in zip(got, port_planes))
     flat = encode(np.full((128, 136), 130, np.uint8), EncodeSpec(quality=50))
     stream = T.parse(flat)
-    with pytest.raises(T.NotSupported, match="expand_tiles"):
-        pipeline.build_plan(stream, tuning=T.Tuning(write_mode="tiles"))
+    auto = pipeline.build_plan(stream, tuning=T.Tuning(write_mode="tiles"))
+    assert auto.signature.scans[0].cfg.tile_auto == "lane"
+    got = pipeline.decode_jpeg_device(flat, device="cpu", plan=auto)
+    assert all(np.array_equal(a, b)
+               for a, b in zip(got, golden.decode(flat)))
     plan = pipeline.build_plan(stream, tuning=T.Tuning(tile_mode="lane"))
     assert plan.signature.scans[0].cfg.tile_auto == "lane"
-    # a cfg that reaches the write stage some other way is refused there
+    got = pipeline.decode_jpeg_device(flat, device="cpu", plan=plan)
+    assert all(np.array_equal(a, b)
+               for a, b in zip(got, golden.decode(flat)))
+
+
+@pytest.mark.parametrize("mode", ["auto", "super", "lane"])
+@pytest.mark.parametrize("auto_choice", ["super", "lane"])
+def test_resolve_tile_mode_matches_reference(mode, auto_choice):
+    from jpeggpu_tpu.ops import write_pallas as WP
     from jpeggpu_tpu_torch.ops import write as TW
 
-    with pytest.raises(T.NotSupported):
-        TW.resolve_tile_mode("auto", "lane")
-    assert TW.resolve_tile_mode("auto", "super") == "super"
+    got = TW.resolve_tile_mode(mode, auto_choice)
+    assert got == WP.resolve_tile_mode(mode, auto_choice)
+    assert got == (auto_choice if mode == "auto" else mode)
+    if auto_choice == "super":  # the default of both
+        assert TW.resolve_tile_mode(mode) == WP.resolve_tile_mode(mode)
 
 
 def test_decode_matches_golden(data_420_rst2, port_planes):
