@@ -90,6 +90,8 @@ from jpeggpu_tpu_torch.ops import dc as DC
 from jpeggpu_tpu_torch.ops import huffman as H
 from jpeggpu_tpu_torch.ops import idct as I
 from jpeggpu_tpu_torch.ops import write as W
+from jpeggpu_tpu_torch.parallel import make_mesh
+from jpeggpu_tpu_torch.parallel import segments as SEG
 
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
@@ -117,6 +119,8 @@ K6_OPS_PER_CELL = 4
 # each of the 64 candidate lanes
 K7_OPS_PER_RECORD, K7_OPS_PER_CELL = 10, 2
 K8_OPS_PER_CELL, K8_OPS_PER_CANDIDATE = 4, 3
+# K9, from kernels/csrc/idct_blocks.cu: K3's arithmetic without the DC splice
+K9_OPS_PER_PIXEL = K3_OPS_PER_PIXEL
 
 TILES = T.Tuning(write_mode="tiles", tile_mode="super")
 LANE = T.Tuning(write_mode="tiles", tile_mode="lane")
@@ -125,6 +129,7 @@ AUTO = T.Tuning(write_mode="tiles")
 S420 = [(2, 2), (1, 1), (1, 1)]
 FULL_W, FULL_H, QUALITY = 4032, 3024, 90  # restart interval: one MCU row
 QUALITY_SPARSE = 30  # the same image with > 55 data units per subsequence
+SHARDS = 4  # shards of the sharded decode, all on the one card
 
 
 def log(msg: str) -> None:
@@ -307,7 +312,8 @@ def phase_build(dev: torch.device) -> None:
     built = ("jpeggpu_subseq_pass", "jpeggpu_decode_write",
              "jpeggpu_idct_stream_to_plane", "jpeggpu_emit_pass",
              "jpeggpu_supertiles", "jpeggpu_expand_supertiles",
-             "jpeggpu_tiles", "jpeggpu_expand_tiles")
+             "jpeggpu_tiles", "jpeggpu_expand_tiles",
+             "jpeggpu_dequant_idct_plane")
     for fn in built:
         kernels.get(fn)
     for entry in kernels.build_log:
@@ -714,9 +720,11 @@ def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
 
 WRAPPERS = (H.subseq_pass, H.decode_write, I.idct_stream_to_plane,
             H.decode_write_emit, W.supertiles_from_records,
-            W.expand_supertiles, W.tiles_from_records, W.expand_tiles)
+            W.expand_supertiles, W.tiles_from_records, W.expand_tiles,
+            I.dequant_idct_plane)
 SUPER_KERNELS = ("supertiles_from_records", "expand_supertiles")
 LANE_KERNELS = ("tiles_from_records", "expand_tiles")
+SHARDED_KERNELS = ("dequant_idct_plane",)
 
 
 def counted(fn):
@@ -783,7 +791,8 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
     if not (launches["subseq_pass"] >= 2 and launches["decode_write"] == 1
             and launches["idct_stream_to_plane"] == n_comps
             and len(by_slot) == n_comps and all(by_slot.values())
-            and not any(launches[k] for k in records_kernels + LANE_KERNELS)):
+            and not any(launches[k] for k in records_kernels + LANE_KERNELS
+                        + SHARDED_KERNELS)):
         raise AssertionError(f"the default path must launch K1, K2 and K3 "
                              f"and no other kernel: {launches} {by_slot}")
 
@@ -808,7 +817,7 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
         f"slot: {tby_slot}; {W.scatter_leftover.lanes} leftover lane(s)")
     if not (tlaunches["subseq_pass"] >= 2 and tlaunches["decode_write"] == 0
             and all(tlaunches[k] == 1 for k in records_kernels)
-            and not any(tlaunches[k] for k in LANE_KERNELS)
+            and not any(tlaunches[k] for k in LANE_KERNELS + SHARDED_KERNELS)
             and tlaunches["idct_stream_to_plane"] == n_comps
             and len(tby_slot) == n_comps and all(tby_slot.values())):
         raise AssertionError(f"the records path must launch K1, K4, K5, K6 "
@@ -839,7 +848,7 @@ def profile_decode(dev, card, label, run, decode_ms, own) -> None:
     """The device's busy and idle share of one decode (`run`), from the
     profiler's kernel times against `decode_ms`, the time of a decode from
     staged inputs without the profiler; and the time of each launch of the
-    kernels named in `own`."""
+    kernels named in `own`, which it returns by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -853,17 +862,20 @@ def profile_decode(dev, card, label, run, decode_ms, own) -> None:
     if busy_ms <= 0:
         log(f"{label}: device busy share of a decode: not measured (the "
             "profiler reported no device time)")
-        return
+        return {}
     log(f"{label}: device busy {busy_ms:.3f} ms (kernel times from the "
         f"profiler) of a {decode_ms:.2f} ms decode from staged inputs: idle "
         f"share {1 - busy_ms / decode_ms:.2f}  [{card}]")
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:.4f} ms x{e.count}  {e.key[:70]}")
+    times = {}
     for name in own:
         each = [e.self_device_time_total / 1e3 for e in prof.events()
                 if e.device_type == DeviceType.CUDA and name in e.name]
         log(f"  inside the decode, {name.lstrip(':')} per launch, ms: "
             + " ".join(f"{t:.4f}" for t in each) + f"  [{card}]")
+        times[name] = each
+    return times
 
 
 def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
@@ -1070,8 +1082,8 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
     if not (launches["subseq_pass"] >= 2
             and all(launches[k] == 1
                     for k in ("decode_write_emit",) + LANE_KERNELS)
-            and not any(launches[k]
-                        for k in ("decode_write",) + SUPER_KERNELS)
+            and not any(launches[k] for k in ("decode_write",) + SUPER_KERNELS
+                        + SHARDED_KERNELS)
             and launches["idct_stream_to_plane"] == n_comps
             and len(by_slot) == n_comps and all(by_slot.values())):
         raise AssertionError(f"the per-lane path must launch K1, K4, K7, K8 "
@@ -1141,6 +1153,193 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
     return launches, by_slot
 
 
+# --- the sharded decode (parallel/segments.py) and its kernel K9 ------------
+
+def phase_k9_any_input(dev: torch.device, seed: int) -> None:
+    """K9 against its plain version on made-up planes: coefficients at
+    +-32767 and -32768 beside random ones, qtable bytes at and above 128
+    (read as signed int8), block counts that are not multiples of 512."""
+    rng = np.random.default_rng(seed)
+    extremes = np.array([-32768, -32767, -1, 0, 1, 2, 32767], np.int16)
+    for h, w in ((8 * 37, 8 * 23), (8, 40), (768, 4032)):
+        plane = rng.choice(extremes, (h, w))
+        plane[:h // 2] = rng.integers(-32768, 32768, (h // 2, w))
+        q = rng.integers(128, 256, 64).astype(np.int32)
+        q[::3] = rng.integers(0, 128, len(q[::3]))
+        pt, qt = (torch.from_numpy(a).to(dev) for a in (plane, q))
+        err = max_abs_err(I.dequant_idct_plane(pt, qt),
+                          I.dequant_idct_plane_plain(pt, qt))
+        sync(dev)
+        log(f"K9 on a made-up {h}x{w} plane ({h * w // 64} blocks): "
+            f"max_abs_err {err} against the plain version")
+        if err:
+            raise AssertionError("K9 differs from its plain version on "
+                                 "made-up inputs")
+
+
+def phase_sharded_small_streams(dev: torch.device, seed: int) -> None:
+    """The small streams through `decode_sharded` on meshes of 2 and 4
+    shards on the card, where every scan has that many subsequences: ==
+    golden."""
+    for name, data in small_streams(seed):
+        expect = golden.decode(data)
+        scans = T.parse(data).scans
+        for D in (2, 4):
+            if min(sc.num_subsequences for sc in scans) < D:
+                log(f"small stream {name}: a scan has fewer than {D} "
+                    f"subsequences, not sharded {D} ways")
+                continue
+            check_equal_numpy(f"{name} sharded {D} ways",
+                              SEG.decode_sharded(data, make_mesh([dev] * D)),
+                              expect)
+            kinds = ["segments" if sc.num_segments >= D else "subsequences"
+                     for sc in scans]
+            log(f"small stream {name}: decode_sharded over {D} shards on "
+                f"{dev.type} ({', '.join(kinds)}) == golden")
+
+
+def sharded_kernels(dev: torch.device, data: bytes, card: str, mesh):
+    """K9 at the 12 MP chunk shapes: the sharded path's de-interleaved
+    coefficient chunks (its decode with `with_idct=False`, planes left on
+    the device), held against its plain version; returns K9's entry without
+    launch counts."""
+    plan = pipeline.build_plan(T.parse(data))
+    st, = SEG.stage_sharded(data, mesh, plan)
+    frame_mb = (st.padded_total + st.shp.shard_positions) * 2e-6
+    log(f"sharded 12 MP: {st.granularity} granularity, {mesh.size} shards "
+        f"on {dev}, segment bounds {st.shp.bounds}, lanes {st.shp.cfg.lanes} "
+        f"per shard ({[sh['n_subseq'] for sh in st.shards]} subsequences), "
+        f"{st.rows} MCU rows per chunk, frames of {frame_mb:.1f} MB")
+    blocks = SEG.decode_staged([st], with_idct=False)
+    qtables = st.shards[0]["qtables"]
+    entry = None
+    for comp in st.sp.comps:
+        chunks = blocks[comp[0]]
+        plane, q = chunks[0], qtables[comp[6]]
+        err = max(max_abs_err(I.dequant_idct_plane(b, q),
+                              I.dequant_idct_plane_plain(b, q))
+                  for b in chunks[1:])
+        _, timing = measure(
+            dev, card, f"K9 dequant_idct_plane component {comp[0]} "
+            f"{tuple(plane.shape)} ({plane.numel() // 64} blocks)",
+            lambda: I.dequant_idct_plane(plane, q),
+            lambda: I.dequant_idct_plane_plain(plane, q), max_abs_err)
+        if err:
+            raise AssertionError("K9 differs from its plain version on a "
+                                 "later chunk")
+        pixels = plane.numel()
+        b_ms, b_by = bound(2 * pixels + 64 * 4 + pixels,
+                           pixels * K9_OPS_PER_PIXEL)
+        log(f"  K9 component {comp[0]}: {2 * pixels / 1e6:.2f} MB in, "
+            f"{pixels / 1e6:.2f} MB out, bound {b_ms:.4f} ms by {b_by}, "
+            f"{pixels * K9_OPS_PER_PIXEL / INT_OPS_PER_S * 1e3:.4f} ms by "
+            f"operations; the other shards' chunks == plain too")
+        if entry is None:  # luma: the kernel's entry
+            entry = dict(
+                name="dequant_idct_plane", route="cuda",
+                source="jpeggpu_tpu_torch/kernels/csrc/idct_blocks.cu",
+                replaces="jpeggpu_tpu/ops/idct_pallas.py:231",
+                bound_ms=b_ms, bound_by=b_by, shape=list(plane.shape),
+                **timing)
+        else:
+            entry[f"component{comp[0]}"] = dict(
+                shape=list(plane.shape), bound_ms=b_ms, **timing)
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       timing["max_abs_err"])
+    return entry
+
+
+def phase_sharded_path(dev: torch.device, data: bytes, card: str, mesh,
+                       expect):
+    """`decode_sharded` at 12 MP over the mesh (segment granularity: the
+    scan has 189 restart segments), counted; then the subsequence
+    granularity on the same image, whose seams fall inside segments."""
+    n_comps = len(expect)
+    planes, launches, by_slot = counted(
+        lambda: SEG.decode_sharded(data, mesh))
+    log(f"sharded path launches ({mesh.size} shards): {launches} (K1 = the "
+        f"shards' sync rounds, summed), idct_stream_to_plane by slot "
+        f"{by_slot}")
+    if not (launches["dequant_idct_plane"] == n_comps * mesh.size
+            and launches["decode_write"] == mesh.size
+            and launches["subseq_pass"] >= 2 * mesh.size
+            and launches["idct_stream_to_plane"] == 0
+            and not any(launches[k] for k in ("decode_write_emit",)
+                        + SUPER_KERNELS + LANE_KERNELS)):
+        raise AssertionError(f"the sharded path must launch K1, K2 once per "
+                             f"shard and K9 once per component and shard, "
+                             f"and no other kernel: {launches}")
+    check_equal_numpy("12 MP decode_sharded vs golden", planes, expect)
+    log(f"12 MP decode_sharded over {mesh.size} shards on the card == golden "
+        f"== default path")
+
+    plan = pipeline.build_plan(T.parse(data))
+    st = SEG._stage(data, plan, 0, mesh, "subsequences")
+    blocks, slaunches, _ = counted(lambda: SEG.decode_scan_staged(st))
+    got = SEG.assemble(plan, {c[0]: b for c, b in zip(st.sp.comps, blocks)})
+    log(f"subsequence granularity at 12 MP: subsequence bounds "
+        f"{st.shp.bounds}, lanes {st.shp.cfg.lanes} per shard, "
+        f"{st.outer_rounds} outer round(s), launches {slaunches}")
+    if slaunches["dequant_idct_plane"] != n_comps * mesh.size:
+        raise AssertionError("the subsequence granularity skipped K9")
+    check_equal_numpy("12 MP subsequence granularity vs golden", got, expect)
+    log("12 MP subsequence-granular sharded decode == golden")
+    return launches, by_slot
+
+
+def phase_sharded_times(dev: torch.device, data: bytes, card: str, mesh):
+    """The sharded and the unsharded decode of the same image, 15 turns
+    taken in rotation, from staged inputs (planes left on the device) and
+    with host staging; the sharded decode's peak device memory and its
+    device busy share. Returns K9's per-launch times inside the decode."""
+    stream = T.parse(data)
+    mp = stream.size_x * stream.size_y / 1e6
+    plan = pipeline.build_plan(stream)
+    staged = SEG.stage_sharded(data, mesh, plan)
+    dec = T.Decoder(device=dev)
+    dec.parse_header(data)
+    dec.transfer()
+    runs = {
+        "sharded, from staged inputs": lambda: SEG.decode_staged(staged),
+        "unsharded, from staged inputs":
+            lambda: dec.decode(keep_on_device=True),
+        "sharded, with host staging": lambda: SEG.decode_sharded(data, mesh),
+        "unsharded, with host staging": lambda: T.decode(data, device=dev),
+    }
+    for fn in runs.values():
+        fn()
+    sync(dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs["sharded, from staged inputs"]()
+    sync(dev)
+    log(f"sharded decode: peak device memory "
+        f"{(torch.cuda.max_memory_allocated(dev) - held) / 1e6:.1f} MB above "
+        f"the staged inputs (both paths') of {held / 1e6:.1f} MB")
+    turns = {label: [] for label in runs}
+    for _ in range(15):
+        for label, fn in runs.items():
+            sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            turns[label].append((time.perf_counter() - t0) * 1e3)
+    med = {}
+    for label, ms in turns.items():
+        ms = sorted(ms)
+        med[label] = ms[7]
+        log(f"{label}: 15 turns with the other three: median {ms[7]:.2f} ms "
+            f"= {mp / ms[7] * 1e3:.0f} MP/s, quartiles {ms[3]:.2f} - "
+            f"{ms[11]:.2f} ms  [{card}]")
+    times = profile_decode(
+        dev, card, "sharded path", lambda: SEG.decode_staged(staged),
+        med["sharded, from staged inputs"],
+        ("::subseq_pass_kernel", "::decode_write_kernel",
+         "::dequant_idct_plane_kernel"))
+    dec.cleanup()
+    return times.get("::dequant_idct_plane_kernel", [])
+
+
 def make_image(seed: int, quality: int, strip_rows: int = 9):
     """The 12 MP test image at `quality`: a strip of MCU rows encoded with
     the numpy encoder, and the image that repeats its restart segments.
@@ -1170,6 +1369,8 @@ def main() -> int:
     phase_build(dev)
     phase_small_streams(dev, args.seed)
     phase_lane_kernels_any_input(dev, args.seed)
+    phase_k9_any_input(dev, args.seed)
+    phase_sharded_small_streams(dev, args.seed)
 
     strip, data = make_image(args.seed, QUALITY)
     golden_strip = repeat_strip(strip, 48)
@@ -1195,19 +1396,35 @@ def main() -> int:
         f"tile_mode='auto' == golden")
     entries += lane_path_kernels(dev, sparse, card)
     llaunches, lby_slot = phase_lane_path(dev, sparse, card)
+
+    t0 = time.perf_counter()
+    expect = golden.decode(data)
+    log(f"golden decode of the 12 MP image on the host: "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_equal_numpy("12 MP default path vs golden",
+                      T.decode(data, device=dev), expect)
+    mesh = make_mesh([dev] * SHARDS)
+    k9 = sharded_kernels(dev, data, card, mesh)
+    slaunches, sby_slot = phase_sharded_path(dev, data, card, mesh, expect)
+    k9["ms_in_decode"] = phase_sharded_times(dev, data, card, mesh)
+    entries.append(k9)
     for e in entries:
         # counted by the wrappers during each main path's run, K3 per
         # component; `launches` is the count on the path that is the
         # kernel's own (K1-K3 the default path, K4-K6 the records path on
-        # the quality-90 image, K7-K8 the per-lane path on the sparse one)
+        # the quality-90 image, K7-K8 the per-lane path on the sparse one,
+        # K9 the sharded path on the quality-90 image)
         slot = e.pop("slot", None)
         on_default = launches[e["name"]] if slot is None else by_slot[slot]
         on_records = tlaunches[e["name"]] if slot is None else tby_slot[slot]
         on_lane = llaunches[e["name"]] if slot is None else lby_slot[slot]
-        e["launches"] = on_default or on_records or on_lane
+        on_sharded = (slaunches[e["name"]] if slot is None
+                      else sby_slot.get(slot, 0))
+        e["launches"] = on_default or on_records or on_lane or on_sharded
         e["launches_default_path"] = on_default
         e["launches_records_path"] = on_records
         e["launches_lane_path"] = on_lane
+        e["launches_sharded_path"] = on_sharded
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

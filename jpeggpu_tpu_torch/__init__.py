@@ -5,9 +5,11 @@ parsing, table derivation and destuffing, then on the device the
 subsequence-parallel speculative Huffman decode with self-synchronisation,
 the DC prefix sums and the fused de-interleave + integer dequantise + IDCT.
 Plain tensor code is PyTorch; the kernels of the decode path (three on the
-default path, three more on the records write path that
-``Tuning(write_mode="tiles")`` selects) are CUDA C++ (``kernels/csrc``),
-built at first use. The package imports torch and numpy only.
+default path, five more on the records write path that
+``Tuning(write_mode="tiles")`` selects, one more in the tail of the sharded
+decode, ``parallel.segments.decode_sharded``) are CUDA C++
+(``kernels/csrc``), built at first use. The package imports torch and numpy
+only.
 """
 
 from .config import Tuning, default_tuning, set_default_tuning

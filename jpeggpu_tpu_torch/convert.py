@@ -13,7 +13,9 @@ path cross the same way, as numpy, in both directions (:func:`to_torch`,
 :func:`to_numpy`): ``(rec, m)``, ``(val_rows, pk_rows, mmax_st)``,
 ``(stiles, base, q)`` and the per-lane shape's ``(val, wpos, m, du0,
 include)`` and ``(tiles, du0, q)`` have the same shapes, types and meaning
-in both packages. Nothing of the JAX package is imported here.
+in both packages. The sharded decode's stacked shard inputs cross the
+same way (:func:`shard_arrays`). Nothing of the JAX package is imported
+here.
 """
 
 from __future__ import annotations
@@ -86,6 +88,42 @@ def scan_arrays(scan_inputs: Mapping[str, np.ndarray],
         maxcode=i32("maxcode", (8, 16)),
         vsm=i32("vsm", (8, 16)),
         huffval=i32("huffval", -1),
+    )
+
+
+def shard_arrays(inputs: Mapping[str, np.ndarray], d: int,
+                 device: torch.device | str) -> ScanArrays:
+    """Shard ``d`` of stacked shard inputs -> :class:`ScanArrays` on
+    ``device``. ``inputs`` is what ``build_shard_inputs`` or
+    ``build_subseq_shard_inputs`` of either package returns: numpy arrays
+    with a leading shard axis (``words``, ``seg_of``, ``seg_first``,
+    ``seg_nsub``) and the Huffman tables, which all shards share. Where
+    ``inputs`` has ``prev_word`` (subsequence shards), the words are staged
+    behind the word before the shard, ``ScanArrays.words`` is the view that
+    starts after it and ``lead_words`` is 1 (see ``ops.huffman.ScanArrays``).
+    """
+    def i32(a, shape=-1):
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return np.array(a, np.int32).reshape(shape)
+
+    words = i32(inputs["words"][d])
+    lead = 1 if "prev_word" in inputs else 0
+    if lead:
+        words = np.concatenate([i32(inputs["prev_word"][d]), words])
+    words_t = torch.from_numpy(words).to(device)
+    return ScanArrays(
+        words=words_t[lead:],
+        seg_of_subseq=torch.from_numpy(i32(inputs["seg_of"][d])).to(device),
+        seg_first_lane=torch.from_numpy(
+            i32(inputs["seg_first"][d])).to(device),
+        seg_num_subseq=torch.from_numpy(
+            i32(inputs["seg_nsub"][d])).to(device),
+        maxcode=torch.from_numpy(i32(inputs["maxcode"], (8, 16))).to(device),
+        vsm=torch.from_numpy(i32(inputs["vsm"], (8, 16))).to(device),
+        huffval=torch.from_numpy(i32(inputs["huffval"])).to(device),
+        lead_words=lead,
     )
 
 

@@ -9,11 +9,12 @@ started together, in the package's build directory, and loaded with
 imported: a machine with no ``nvcc`` can import the package and run the
 plain versions on CPU tensors.
 
-Eight kernels: the sync round (``subseq_pass.cu``), the direct writing
+Nine kernels: the sync round (``subseq_pass.cu``), the direct writing
 decode (``decode_write.cu``), the stream -> plane tail (``idct_stream.cu``),
-and the records write path: the emitting decode (``emit_pass.cu``), its
+the records write path: the emitting decode (``emit_pass.cu``), its
 supertile shape (``supertiles.cu``, ``expand_supertiles.cu``) and its
-per-lane shape for sparse scans (``tiles.cu``, ``expand_tiles.cu``).
+per-lane shape for sparse scans (``tiles.cu``, ``expand_tiles.cu``); and
+the plane IDCT of the sharded decode's tail (``idct_blocks.cu``).
 
 The wrappers that launch the kernels (and count their launches) live beside
 the plain PyTorch versions in ``ops/huffman.py``, ``ops/write.py`` and
@@ -52,7 +53,7 @@ _KERNELS = {
     "jpeggpu_decode_write": (
         "decode_write.cu", ("huffman_common.cuh",), [_P] * 17 + [_I] * 3 + [_P]),
     "jpeggpu_idct_stream_to_plane": (
-        "idct_stream.cu", (), [_P] * 4 + [_I] * 6 + [_P]),
+        "idct_stream.cu", ("idct_common.cuh",), [_P] * 4 + [_I] * 6 + [_P]),
     "jpeggpu_emit_pass": (
         "emit_pass.cu", ("huffman_common.cuh",), [_P] * 17 + [_I] * 4 + [_P]),
     "jpeggpu_supertiles": (
@@ -64,6 +65,8 @@ _KERNELS = {
         "tiles.cu", ("tile_common.cuh",), [_P] * 7 + [_I] * 3 + [_P]),
     "jpeggpu_expand_tiles": (
         "expand_tiles.cu", ("tile_common.cuh",), [_P] * 4 + [_I] * 3 + [_P]),
+    "jpeggpu_dequant_idct_plane": (
+        "idct_blocks.cu", ("idct_common.cuh",), [_P] * 3 + [_I] * 2 + [_P]),
 }
 
 _lock = threading.Lock()

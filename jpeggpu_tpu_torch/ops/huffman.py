@@ -100,6 +100,13 @@ class ScanArrays:
     maxcode: torch.Tensor  # int32[8,16]
     vsm: torch.Tensor  # int32[8,16] valptr - mincode
     huffval: torch.Tensor  # int32[8*256]
+    # words staged in front of ``words`` in its storage (0 or 1). A
+    # subsequence shard (parallel/segments.py, which gives its segments a
+    # negative ``seg_first_lane``) has 1: the word before the shard, since
+    # lane 0 of a shard that begins mid-segment may start up to 31 bits
+    # before its own words. The kernels and the plain versions both read
+    # word -1 from there; with 0 no index below 0 occurs.
+    lead_words: int = 0
 
 
 @dataclasses.dataclass
@@ -124,8 +131,11 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return ((x + 0x80000000) & _M32) - 0x80000000
 
 
-def make_ctx(cfg: ScanConfig, arrs: ScanArrays) -> Ctx:
-    """Build the decode context on the device of ``arrs``."""
+def make_ctx(cfg: ScanConfig, arrs: ScanArrays, num_subseq=None) -> Ctx:
+    """Build the decode context on the device of ``arrs``. ``num_subseq``,
+    if given, makes exactly the lanes below it valid (a shard of the
+    sharded decode, where every shard owns a different number of
+    subsequences)."""
     dev = arrs.words.device
     lanes = cfg.lanes
     # limits[t, j] = first 32-bit-left-aligned value whose code is longer
@@ -144,10 +154,13 @@ def make_ctx(cfg: ScanConfig, arrs: ScanArrays) -> Ctx:
 
     lane = torch.arange(lanes, device=dev, dtype=torch.int32)
     rel = lane - arrs.seg_first_lane
-    # data-driven validity: a lane is real iff its index within its segment
-    # is below the segment's subsequence count (padded lanes inherit the
-    # last segment's table entries, putting rel >= count)
-    lane_valid = (rel >= 0) & (rel < arrs.seg_num_subseq)
+    if num_subseq is None:
+        # data-driven validity: a lane is real iff its index within its
+        # segment is below the segment's subsequence count (padded lanes
+        # inherit the last segment's table entries, putting rel >= count)
+        lane_valid = (rel >= 0) & (rel < arrs.seg_num_subseq)
+    else:
+        lane_valid = lane < num_subseq
     return Ctx(
         word_end=(arrs.seg_first_lane + arrs.seg_num_subseq) * C.CHUNK_SIZE_WORDS,
         seg_base_bits=arrs.seg_first_lane * C.SUBSEQ_SIZE_BITS,
@@ -163,41 +176,74 @@ def make_ctx(cfg: ScanConfig, arrs: ScanArrays) -> Ctx:
 
 # --- plain symbol decode (lock-step over lanes, int64 arithmetic) -----------
 
-def _load32(arrs: ScanArrays, ctx: Ctx, p: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass
+class _Plain:
+    """The operands of the plain symbol step, widened to int64 once per
+    pass rather than once per symbol."""
+
+    words: torch.Tensor  # word values in [0, 2^32), the lead words first
+    lead: int  # ScanArrays.lead_words
+    word_end: torch.Tensor
+    seg_base_bits: torch.Tensor
+    end_subseq: torch.Tensor
+    slots: torch.Tensor
+    limits: torch.Tensor  # uint32 values
+    maxcode: torch.Tensor
+    vsm: torch.Tensor
+    huffval: torch.Tensor
+
+
+def _plain_operands(arrs: ScanArrays, ctx: Ctx) -> _Plain:
+    words = arrs.words
+    lead = arrs.lead_words
+    if lead:
+        # word -1 is the staged word before the shard (ScanArrays.lead_words)
+        words = words.as_strided((words.numel() + lead,), (1,),
+                                 words.storage_offset() - lead)
+    i64 = torch.int64
+    return _Plain(
+        words=words.to(i64) & _M32, lead=lead,
+        word_end=ctx.word_end.to(i64), seg_base_bits=ctx.seg_base_bits.to(i64),
+        end_subseq=ctx.end_subseq.to(i64), slots=ctx.slots.to(i64),
+        limits=ctx.limits.to(i64) & _M32, maxcode=arrs.maxcode.to(i64),
+        vsm=arrs.vsm.to(i64), huffval=arrs.huffval.to(i64))
+
+
+def _load32(t: _Plain, p: torch.Tensor) -> torch.Tensor:
     """Next 32 bits MSB-aligned at segment-relative bit ``p`` as int64 in
     [0, 2^32), zero past the segment end."""
-    abs_bit = ctx.seg_base_bits + p
+    abs_bit = t.seg_base_bits + p
     w = abs_bit >> 5
     b = abs_bit & 31
-    last = arrs.words.numel() - 1
+    last = t.words.numel() - 1
 
     def word(i):
-        v = arrs.words[i.clamp(0, last)].to(torch.int64) & _M32
-        return torch.where(i < ctx.word_end, v, 0)
+        v = t.words[(i + t.lead).clamp(0, last)]
+        return torch.where(i < t.word_end, v, 0)
 
     hi = (word(w) << b) & _M32
     return hi | (word(w + 1) >> (32 - b))
 
 
-def _category_fast(arrs: ScanArrays, ctx: Ctx, data, tbl):
+def _category_fast(t: _Plain, data, tbl):
     """Canonical-limit category decode (exact for unsaturated tables):
     ``data >= limits[j]`` is precisely "code longer than j+1 bits", so the
     length is a count of limit comparisons. Returns the 0-based length."""
-    lim = (ctx.limits.to(torch.int64) & _M32).index_select(0, tbl)
+    lim = t.limits.index_select(0, tbl)
     return (data[:, None] >= lim[:, :15]).sum(dim=1)
 
 
-def _category_slow(arrs: ScanArrays, ctx: Ctx, data, tbl):
+def _category_slow(t: _Plain, data, tbl):
     """maxcode-comparison category decode (handles saturated tables): the
     first length l whose l-bit prefix is <= maxcode[l]; 16 always ends."""
     iota16 = torch.arange(16, device=data.device, dtype=torch.int64)
     codes = data[:, None] >> (31 - iota16)[None, :]
-    maxcode = arrs.maxcode.to(torch.int64).index_select(0, tbl)
+    maxcode = t.maxcode.index_select(0, tbl)
     le = (codes <= maxcode) | (iota16 == 15)[None, :]
     return le.to(torch.int8).argmax(dim=1)
 
 
-def _decode_symbol(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, data, c, z,
+def _decode_symbol(cfg: ScanConfig, t: _Plain, data, c, z,
                    need_value: bool = True):
     """One symbol on all lanes. Returns (length, sym, run), int64.
 
@@ -205,17 +251,17 @@ def _decode_symbol(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, data, c, z,
     EXTEND value is not computed and sym is 0.
     """
     is_dc = z == 0
-    pair = ctx.slots.to(torch.int64).index_select(0, c)  # (lanes, 2)
+    pair = t.slots.index_select(0, c)  # (lanes, 2)
     tbl = torch.where(is_dc, pair[:, 0], pair[:, 1])
     if cfg.fast_tables:
-        l_idx = _category_fast(arrs, ctx, data, tbl)
+        l_idx = _category_fast(t, data, tbl)
     else:
-        l_idx = _category_slow(arrs, ctx, data, tbl)
+        l_idx = _category_slow(t, data, tbl)
     cat_len = l_idx + 1
     code = data >> (32 - cat_len)
-    vsm = arrs.vsm.to(torch.int64)[tbl, l_idx]
+    vsm = t.vsm[tbl, l_idx]
     idx = (vsm + code) & 0xFF
-    sym_cat = arrs.huffval.to(torch.int64)[tbl * 256 + idx]
+    sym_cat = t.huffval[tbl * 256 + idx]
 
     run_ac = sym_cat >> 4
     cat_ac = sym_cat & 0xF
@@ -238,12 +284,12 @@ def _decode_symbol(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, data, c, z,
     return length, sym, run
 
 
-def _symbol_step(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z, active,
+def _symbol_step(cfg: ScanConfig, t: _Plain, p, c, z, active,
                  need_value: bool = True):
     """One masked symbol step; returns (p, c, z, sym, run, commit)."""
-    data = _load32(arrs, ctx, p)
-    length, sym, run = _decode_symbol(cfg, arrs, ctx, data, c, z, need_value)
-    commit = active & (p + length <= ctx.end_subseq)
+    data = _load32(t, p)
+    length, sym, run = _decode_symbol(cfg, t, data, c, z, need_value)
+    commit = active & (p + length <= t.end_subseq)
     p = torch.where(commit, p + length, p)
     z_new = z + run + 1
     wrap = z_new >= 64
@@ -278,12 +324,13 @@ def _table_ptrs(arrs: ScanArrays, ctx: Ctx, dev: torch.device):
 def subseq_pass_plain(cfg, arrs, ctx, p0, c0, z0, active0):
     """Plain version of :func:`subseq_pass`: all lanes in lock step, one
     symbol per iteration, on whatever device holds the tensors."""
+    t = _plain_operands(arrs, ctx)
     p, c, z = p0.to(torch.int64), c0.to(torch.int64), z0.to(torch.int64)
     n = torch.zeros_like(p)
-    active = active0 & (p < ctx.end_subseq)
+    active = active0 & (p < t.end_subseq)
     while bool(active.any()):
         p, c, z, _, run, commit = _symbol_step(
-            cfg, arrs, ctx, p, c, z, active, need_value=False)
+            cfg, t, p, c, z, active, need_value=False)
         n = torch.where(commit, n + run + 1, n)
         active = commit
     return tuple(x.to(torch.int32) for x in (p, c, z, n))
@@ -332,7 +379,21 @@ def subseq_pass(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p0, c0, z0,
 subseq_pass.launches = 0
 
 
-def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx):
+def _enter(ctx: Ctx, starts, entry):
+    """Lane 0's start state from ``entry``, a ``(p, c, z)`` triple of ints
+    or 0-d tensors, where lane 0 is not a segment first; ``starts``
+    unchanged where ``entry`` is None."""
+    if entry is None:
+        return starts
+    use = ~ctx.first_of_seg[:1]
+    out = []
+    for s, e in zip(starts, entry):
+        e = torch.as_tensor(e, dtype=s.dtype, device=s.device).reshape(1)
+        out.append(torch.cat([torch.where(use, e, s[:1]), s[1:]]))
+    return tuple(out)
+
+
+def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, entry=None):
     """Fixed-point synchronisation of subsequence decoder states.
 
     Round 0 decodes every subsequence speculatively ("blind"); round 1
@@ -340,6 +401,11 @@ def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx):
     all lanes self-synchronise here); further full-width rounds run until
     no lane's predecessor changed. Every round is one :func:`subseq_pass`;
     the convergence test costs one host read per round.
+
+    ``entry``, if given, is a ``(p, c, z)`` triple used as lane 0's
+    predecessor state when lane 0 is not a segment first: the boundary
+    state of a subsequence shard (parallel/segments.py), segment-relative
+    like every decoder state, so it transfers between shards unchanged.
 
     Returns converged int32 (p, c, z, n) per subsequence: the state *after*
     decoding subsequence i, with n its coefficient-position count.
@@ -350,8 +416,12 @@ def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx):
     first = ctx.first_of_seg
     valid = ctx.lane_valid
     # lanes whose start state comes from a predecessor (torch.roll wraps
-    # the last lane into lane 0, which is always a segment first)
+    # the last lane into lane 0, which is a segment first or takes the
+    # fixed `entry`: it never re-enters)
     frontier_ok = ~first & valid
+    if entry is not None:
+        frontier_ok = frontier_ok & (
+            torch.arange(lanes, device=valid.device) > 0)
 
     p, c, z, n = subseq_pass(cfg, arrs, ctx, blind_p, zeros, zeros, valid)
     for _ in range(lanes + 1):
@@ -359,6 +429,7 @@ def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx):
         sp = torch.where(first, blind_p, torch.roll(p, 1))
         sc = torch.where(first, zeros, torch.roll(c, 1))
         sz = torch.where(first, zeros, torch.roll(z, 1))
+        sp, sc, sz = _enter(ctx, (sp, sc, sz), entry)
         p2, c2, z2, n2 = subseq_pass(cfg, arrs, ctx, sp, sc, sz, valid)
         # padded lanes stay frozen so they never delay convergence
         p2 = torch.where(valid, p2, blind_p)
@@ -382,38 +453,63 @@ def symbol_offsets(cfg: ScanConfig, arrs: ScanArrays,
     return (excl - base).to(torch.int32)
 
 
-def write_start_states(ctx: Ctx, p, c, z):
+def write_start_states(ctx: Ctx, p, c, z, entry=None):
     """Per-lane start states for the writing decode: lane i continues from
-    lane i-1's synced end state; segment firsts restart from zero."""
+    lane i-1's synced end state; segment firsts restart from zero. With
+    ``entry`` (subsequence shards), lane 0 of a shard that begins
+    mid-segment starts from the previous shard's boundary state instead of
+    the roll wrap."""
     zeros = torch.zeros_like(p)
     sp = torch.where(ctx.first_of_seg, zeros, torch.roll(p, 1))
     sc = torch.where(ctx.first_of_seg, zeros, torch.roll(c, 1))
     sz = torch.where(ctx.first_of_seg, zeros, torch.roll(z, 1))
-    return sp, sc, sz
+    return _enter(ctx, (sp, sc, sz), entry)
 
 
 # --- K2: the writing decode -------------------------------------------------
 
-def _write_inputs(cfg, arrs, ctx, p, c, z, n_off):
+def _write_inputs(cfg, arrs, ctx, p, c, z, n_off, pos_base=None, bound=None,
+                  total_out=None, entry=None):
     """Start states, first position, position bound and activity of every
-    lane for the writing decode."""
-    total = cfg.total_positions
+    lane for the writing decode, the output length, and the bound the
+    direct write (K2) stores to.
+
+    The keywords are a shard's (parallel/segments.py): ``pos_base`` (int32
+    per lane) replaces the segment's first position, ``bound`` (int32 per
+    lane) the segment's write bound, which is then taken as given, not
+    clamped to ``total_out``; ``total_out`` replaces the scan's position
+    count; ``entry`` is lane 0's boundary state (:func:`write_start_states`).
+    The direct write drops a store at or past the output's end, as the
+    reference's scatter does, so its bound is the given one clamped to the
+    output length; the default bound is clamped already.
+    """
+    total = cfg.total_positions if total_out is None else total_out
     seg = arrs.seg_of_subseq
-    # per-segment write bound, clamped to the real buffer size
-    bound = ((seg + 1) * cfg.positions_per_seg).clamp(max=total)
-    sp, sc, sz = write_start_states(ctx, p, c, z)
-    pos0 = seg * cfg.positions_per_seg + n_off
+    if pos_base is None:
+        pos_base = seg * cfg.positions_per_seg
+    if bound is None:
+        # per-segment write bound, clamped to the real buffer size
+        bound = ((seg + 1) * cfg.positions_per_seg).clamp(max=total)
+        store_bound = bound
+    else:
+        store_bound = bound.clamp(max=total)
+    sp, sc, sz = write_start_states(ctx, p, c, z, entry)
+    pos0 = (pos_base + n_off).to(torch.int32)
+    bound = bound.to(torch.int32)
     active0 = ctx.lane_valid & (pos0 < bound) & (sp < ctx.end_subseq)
-    return sp, sc, sz, pos0, bound, active0
+    return (sp, sc, sz, pos0, bound, active0, total,
+            store_bound.to(torch.int32))
 
 
-def decode_write_plain(cfg, arrs, ctx, p, c, z, n_off) -> torch.Tensor:
+def decode_write_plain(cfg, arrs, ctx, p, c, z, n_off, *, pos_base=None,
+                       bound=None, total_out=None,
+                       entry=None) -> torch.Tensor:
     """Plain version of :func:`decode_write`: all lanes in lock step, one
     symbol and one scatter per iteration, on whatever device holds the
     tensors."""
-    total = cfg.total_positions
-    sp, sc, sz, pos0, bound, active = _write_inputs(cfg, arrs, ctx, p, c, z,
-                                                    n_off)
+    sp, sc, sz, pos0, _, active, total, bound = _write_inputs(
+        cfg, arrs, ctx, p, c, z, n_off, pos_base, bound, total_out, entry)
+    t = _plain_operands(arrs, ctx)
     p, c, z = sp.to(torch.int64), sc.to(torch.int64), sz.to(torch.int64)
     pos = pos0.to(torch.int64)
     bound = bound.to(torch.int64)
@@ -423,7 +519,7 @@ def decode_write_plain(cfg, arrs, ctx, p, c, z, n_off) -> torch.Tensor:
         alive = active & (pos < bound)
         if not bool(alive.any()):
             break
-        p, c, z, sym, run, commit = _symbol_step(cfg, arrs, ctx, p, c, z, alive)
+        p, c, z, sym, run, commit = _symbol_step(cfg, t, p, c, z, alive)
         wp = pos + run
         # writes are clamped to the lane's segment bound so a corrupt
         # segment's final run cannot overrun into the next segment's range
@@ -438,7 +534,8 @@ def decode_write_plain(cfg, arrs, ctx, p, c, z, n_off) -> torch.Tensor:
 
 
 def decode_write(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
-                 n_off) -> torch.Tensor:
+                 n_off, *, pos_base=None, bound=None, total_out=None,
+                 entry=None) -> torch.Tensor:
     """Final writing decode: re-decode every subsequence once from its
     synced start state, storing nonzero coefficients zig-zag -> natural
     into the stream-order coefficient buffer. Lane i owns the positions
@@ -452,15 +549,21 @@ def decode_write(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
     of dependent instructions; see the note in the source. CPU tensors:
     the plain version.
 
-    Returns int16[total_positions], DC still difference-coded.
+    The keywords are a shard's (parallel/segments.py; see
+    :func:`_write_inputs`).
+
+    Returns int16[total_positions] (``total_out`` with that keyword), DC
+    still difference-coded.
     """
+    keywords = dict(pos_base=pos_base, bound=bound, total_out=total_out,
+                    entry=entry)
     dev = p.device
     if dev.type == "cpu":
-        return decode_write_plain(cfg, arrs, ctx, p, c, z, n_off)
+        return decode_write_plain(cfg, arrs, ctx, p, c, z, n_off, **keywords)
     if dev.type != "cuda":
         raise ValueError(f"decode_write: unsupported device {dev}")
-    sp, sc, sz, pos0, bound, active0 = _write_inputs(cfg, arrs, ctx, p, c, z,
-                                                     n_off)
+    sp, sc, sz, pos0, _, active0, total, bound = _write_inputs(
+        cfg, arrs, ctx, p, c, z, n_off, **keywords)
     lanes = cfg.lanes
     i32 = torch.int32
     _check_lane_tensors(
@@ -471,7 +574,7 @@ def decode_write(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
     _check_lane_tensors("decode_write", dev, lanes * C.CHUNK_SIZE_WORDS,
                         words=(arrs.words, i32))
     _check_lane_tensors("decode_write", dev, 64, natural=(ctx.natural, i32))
-    out = torch.zeros(cfg.total_positions, dtype=torch.int16, device=dev)
+    out = torch.zeros(total, dtype=torch.int16, device=dev)
     fn = kernels.get("jpeggpu_decode_write")
     err = fn(arrs.words.data_ptr(), ctx.word_end.data_ptr(),
              ctx.seg_base_bits.data_ptr(), ctx.end_subseq.data_ptr(),
@@ -521,13 +624,15 @@ def unpack_record(rec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return rec >> 16, (rec << 16) >> 16
 
 
-def decode_write_emit_plain(cfg, arrs, ctx, p, c, z, n_off):
+def decode_write_emit_plain(cfg, arrs, ctx, p, c, z, n_off, *, pos_base=None,
+                            bound=None, total_out=None, entry=None):
     """Plain version of :func:`decode_write_emit`: all lanes in lock step,
     one symbol and one row of records per iteration, on whatever device
     holds the tensors. Unreached slots hold the inert record."""
     s_cap = _emit_cap(cfg.tuning.write_chunk)
-    sp, sc, sz, pos0, bound, active = _write_inputs(cfg, arrs, ctx, p, c, z,
-                                                    n_off)
+    sp, sc, sz, pos0, bound, active, _, _ = _write_inputs(
+        cfg, arrs, ctx, p, c, z, n_off, pos_base, bound, total_out, entry)
+    t = _plain_operands(arrs, ctx)
     p, c, z = sp.to(torch.int64), sc.to(torch.int64), sz.to(torch.int64)
     pos = pos0.to(torch.int64)
     pos_start = pos
@@ -539,7 +644,7 @@ def decode_write_emit_plain(cfg, arrs, ctx, p, c, z, n_off):
         alive = active & (pos < bound)
         if not bool(alive.any()):
             break
-        p, c, z, sym, run, commit = _symbol_step(cfg, arrs, ctx, p, c, z, alive)
+        p, c, z, sym, run, commit = _symbol_step(cfg, t, p, c, z, alive)
         wp = pos + run
         # the position is recorded even where the value is dropped by the
         # segment bound
@@ -553,7 +658,8 @@ def decode_write_emit_plain(cfg, arrs, ctx, p, c, z, n_off):
 
 
 def decode_write_emit(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
-                      n_off) -> Tuple[torch.Tensor, torch.Tensor]:
+                      n_off, *, pos_base=None, bound=None, total_out=None,
+                      entry=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Writing decode, record-emission form: re-decode every subsequence
     once from its synced start state and emit one packed record per
     committed symbol.
@@ -576,15 +682,20 @@ def decode_write_emit(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
     see the note in the source. On the card the slots at and past ``m[l]``
     are left uninitialised (the buffer is ``torch.empty``: filling it with
     the inert record would write s_cap * lanes * 4 bytes that no consumer
-    reads). CPU tensors: the plain version, which fills them.
+    reads). CPU tensors: the plain version, which fills them. The keywords
+    are a shard's, as for :func:`decode_write`; ``pos0`` is then
+    ``pos_base + n_off``.
     """
+    keywords = dict(pos_base=pos_base, bound=bound, total_out=total_out,
+                    entry=entry)
     dev = p.device
     if dev.type == "cpu":
-        return decode_write_emit_plain(cfg, arrs, ctx, p, c, z, n_off)
+        return decode_write_emit_plain(cfg, arrs, ctx, p, c, z, n_off,
+                                       **keywords)
     if dev.type != "cuda":
         raise ValueError(f"decode_write_emit: unsupported device {dev}")
-    sp, sc, sz, pos0, bound, active0 = _write_inputs(cfg, arrs, ctx, p, c, z,
-                                                     n_off)
+    sp, sc, sz, pos0, bound, active0, _, _ = _write_inputs(
+        cfg, arrs, ctx, p, c, z, n_off, **keywords)
     lanes = cfg.lanes
     s_cap = _emit_cap(cfg.tuning.write_chunk)
     i32 = torch.int32
@@ -614,30 +725,43 @@ def decode_write_emit(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
 decode_write_emit.launches = 0
 
 
-def decode_scan(cfg: ScanConfig, arrs: ScanArrays, return_dc: bool = False):
+def decode_scan(cfg: ScanConfig, arrs: ScanArrays, return_dc: bool = False,
+                *, num_subseq=None, pos_base=None, bound=None,
+                total_out=None):
     """Full entropy decode of one scan: sync, offsets, write.
 
     Returns int16[total_positions] stream-order coefficients (natural order
     within each data unit, DC still difference-coded). With ``return_dc``
     returns ``(coeffs, dc)`` where ``dc`` is the per-data-unit
     difference-coded DC side vector, or ``None`` when the write mode has
-    none.
+    none. The keywords are a segment shard's (parallel/segments.py):
+    ``num_subseq`` goes to :func:`make_ctx`, the others to the write stage
+    (:func:`_write_inputs`).
     """
-    ctx = make_ctx(cfg, arrs)
+    ctx = make_ctx(cfg, arrs, num_subseq=num_subseq)
     p, c, z, n = sync_states(cfg, arrs, ctx)
     n_off = symbol_offsets(cfg, arrs, n)
     return decode_scan_from_states(cfg, arrs, ctx, p, c, z, n_off,
-                                   return_dc=return_dc)
+                                   return_dc=return_dc, pos_base=pos_base,
+                                   bound=bound, total_out=total_out)
 
 
 def decode_scan_from_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c,
-                            z, n_off, return_dc: bool = False):
+                            z, n_off, return_dc: bool = False, *,
+                            pos_base=None, bound=None, total_out=None,
+                            entry=None):
     """Writing decode from already-synced states: the write-stage dispatch
-    of :func:`decode_scan` on ``cfg.tuning.write_mode``."""
+    of :func:`decode_scan` on ``cfg.tuning.write_mode``, callable with
+    states converged elsewhere (a subsequence shard syncs across shards
+    first, parallel/segments.py). The keywords go to the write stage;
+    ``entry`` is the boundary start state of a lane 0 that begins
+    mid-segment."""
+    keywords = dict(pos_base=pos_base, bound=bound, total_out=total_out,
+                    entry=entry)
     if cfg.tuning.write_mode == "tiles":
         from . import write
 
         return write.decode_write_tiles(cfg, arrs, ctx, p, c, z, n_off,
-                                        return_dc=return_dc)
-    coeffs = decode_write(cfg, arrs, ctx, p, c, z, n_off)
+                                        return_dc=return_dc, **keywords)
+    coeffs = decode_write(cfg, arrs, ctx, p, c, z, n_off, **keywords)
     return (coeffs, None) if return_dc else coeffs

@@ -20,16 +20,10 @@ from ..idct_int import dequant_idct_blocks
 from .transpose import deinterleave
 
 
-def dequant_idct_plane(plane: torch.Tensor,
-                       qtable: torch.Tensor) -> torch.Tensor:
-    """IDCT a coefficient plane into uint8 pixels.
-
-    Args:
-      plane: int16[(H, W)] coefficient raster, H and W multiples of 8.
-      qtable: raw DQT bytes, natural order, shape (64,), any int dtype.
-
-    Returns uint8[(H, W)].
-    """
+def dequant_idct_plane_plain(plane: torch.Tensor,
+                             qtable: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`dequant_idct_plane`, on whatever device holds
+    the tensors."""
     h, w = plane.shape
     blocks = plane.to(torch.int32).reshape(h // 8, 8, w // 8, 8)
     blocks = blocks.permute(0, 2, 1, 3)
@@ -37,17 +31,65 @@ def dequant_idct_plane(plane: torch.Tensor,
     return pix.permute(0, 2, 1, 3).reshape(h, w).to(torch.uint8)
 
 
+def dequant_idct_plane(plane: torch.Tensor,
+                       qtable: torch.Tensor) -> torch.Tensor:
+    """IDCT a coefficient plane into uint8 pixels.
+
+    CUDA tensors: kernel K9 (``kernels/csrc/idct_blocks.cu``; replaces the
+    Pallas kernel behind ``jpeggpu_tpu/ops/idct_pallas.py:
+    dequant_idct_blocks_pallas``, with the block transposes around it).
+    Bound by bytes: every coefficient is read once and every pixel written
+    once; see the note in the source. CPU tensors: the plain version.
+
+    Args:
+      plane: int16[(H, W)] coefficient raster, H and W multiples of 8.
+      qtable: raw DQT bytes, natural order, shape (64,), any int dtype.
+
+    Returns uint8[(H, W)].
+    """
+    dev = plane.device
+    if dev.type == "cpu":
+        return dequant_idct_plane_plain(plane, qtable)
+    if dev.type != "cuda":
+        raise ValueError(f"dequant_idct_plane: unsupported device {dev}")
+    if (plane.dtype != torch.int16 or plane.dim() != 2
+            or not plane.is_contiguous() or plane.shape[0] % 8
+            or plane.shape[1] % 8):
+        raise ValueError(
+            "dequant_idct_plane: plane must be a contiguous int16 (H, W) "
+            f"tensor with H and W multiples of 8, got {plane.dtype} "
+            f"{tuple(plane.shape)}")
+    if plane.data_ptr() % 16:
+        raise ValueError("dequant_idct_plane: plane must be 16-byte aligned "
+                         "(the kernel reads 16 bytes at a time)")
+    if qtable.device != dev or qtable.numel() != 64:
+        raise ValueError(f"dequant_idct_plane: qtable must hold 64 values on "
+                         f"{dev}, got {tuple(qtable.shape)} on {qtable.device}")
+    q = qtable.to(torch.int32).contiguous()
+    h, w = plane.shape
+    out = torch.empty((h, w), dtype=torch.uint8, device=dev)
+    fn = kernels.get("jpeggpu_dequant_idct_plane")
+    err = fn(plane.data_ptr(), q.data_ptr(), out.data_ptr(), h, w,
+             torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "dequant_idct_plane")
+    dequant_idct_plane.launches += 1
+    return out
+
+
+dequant_idct_plane.launches = 0
+
+
 def idct_stream_to_plane_plain(coeffs, qtable, num_mcus_x, num_mcus_y,
                                du_per_mcu, off, ssx, ssy, dc):
     """Plain version of :func:`idct_stream_to_plane`: DC splice,
-    ``deinterleave`` and ``dequant_idct_plane``, on whatever device holds
-    the tensors."""
+    ``deinterleave`` and ``dequant_idct_plane_plain`` (never K9), on
+    whatever device holds the tensors."""
     total_mcus = num_mcus_x * num_mcus_y
     spliced = coeffs.clone().view(total_mcus * du_per_mcu, C.DATA_UNIT_SIZE)
     spliced[:, 0] = dc
     plane, = deinterleave(spliced.view(-1), du_per_mcu, num_mcus_x,
                           num_mcus_y, [(off, ssx, ssy)])
-    return dequant_idct_plane(plane, qtable)
+    return dequant_idct_plane_plain(plane, qtable)
 
 
 def idct_stream_to_plane(coeffs: torch.Tensor, qtable: torch.Tensor,

@@ -661,20 +661,27 @@ def resolve_tile_mode(mode: str, auto_choice: str = "super") -> str:
 
 
 def decode_write_tiles(cfg, arrs, ctx, p, c, z, n_off,
-                       return_dc: bool = False):
+                       return_dc: bool = False, *, pos_base=None, bound=None,
+                       total_out=None, entry=None):
     """Drop-in for ``ops.huffman.decode_write`` through the records path.
 
     With ``return_dc`` returns ``(coeffs, dc)`` where ``dc`` is the
     supertile shape's per-data-unit difference-coded DC side vector, or
     ``None`` in the per-lane shape, which has none: callers then take the
-    DC column from the stream."""
-    rec, m = decode_write_emit(cfg, arrs, ctx, p, c, z, n_off)
-    pos0 = arrs.seg_of_subseq * cfg.positions_per_seg + n_off
+    DC column from the stream. The keywords are a shard's, as for
+    ``decode_write``: the lanes' first positions are ``pos_base + n_off``
+    and the output holds ``total_out`` positions."""
+    total = cfg.total_positions if total_out is None else total_out
+    rec, m = decode_write_emit(cfg, arrs, ctx, p, c, z, n_off,
+                               pos_base=pos_base, bound=bound,
+                               total_out=total_out, entry=entry)
+    if pos_base is None:
+        pos_base = arrs.seg_of_subseq * cfg.positions_per_seg
+    pos0 = (pos_base + n_off).to(torch.int32)
     if resolve_tile_mode(cfg.tuning.tile_mode, cfg.tile_auto) == "super":
         return assemble_supertiles(
-            rec, m, pos0 >> 6, pos0, cfg.total_positions, cfg.super_g,
+            rec, m, pos0 >> 6, pos0, total, cfg.super_g,
             cfg.super_w, s_trim=cfg.tuning.s_trim, return_dc=return_dc,
             group_du=cfg.group_du, super_d=cfg.super_d)
-    coeffs = assemble_tiles(rec, m, pos0 >> 6, pos0, cfg.total_positions,
-                            cfg.tile_d)
+    coeffs = assemble_tiles(rec, m, pos0 >> 6, pos0, total, cfg.tile_d)
     return (coeffs, None) if return_dc else coeffs

@@ -162,7 +162,8 @@ def test_decoder_phases(data_420_rst2, port_planes):
                        for a, b in zip(planes, port_planes))
             # the plan's accounting covers what the decode really holds
             held = sum(t.numel() * t.element_size() for s in
-                       d._device_inputs["scans"] for t in vars(s).values())
+                       d._device_inputs["scans"] for t in vars(s).values()
+                       if isinstance(t, torch.Tensor))
             cfg = d._plan.signature.scans[0].cfg
             assert size >= held + 2 * cfg.total_positions
     with pytest.raises(T.InvalidArgument):
@@ -204,6 +205,8 @@ def test_import_without_jax_triton_or_nvcc():
         "import jpeggpu_tpu_torch.golden, jpeggpu_tpu_torch.encoder\n"
         "import jpeggpu_tpu_torch.native, jpeggpu_tpu_torch.utils.color\n"
         "import jpeggpu_tpu_torch.config, jpeggpu_tpu_torch.ops.write\n"
+        "import jpeggpu_tpu_torch.parallel, jpeggpu_tpu_torch.parallel.segments\n"
+        "import jpeggpu_tpu_torch.parallel.collectives\n"
         "assert not jpeggpu_tpu_torch.kernels._functions\n"
         "assert sorted(T.__all__) == sorted(set(T.__all__))\n"
         "assert all(hasattr(T, n) for n in T.__all__)\n"
@@ -285,9 +288,14 @@ def test_wrappers_refuse_other_devices(data_420_rst2):
             torch.zeros(1, dtype=torch.int16))
     with pytest.raises(ValueError, match="unsupported device"):
         TH.decode_write_emit(cfg, arrs, ctx, meta, meta, meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tidct.dequant_idct_plane(
+            torch.zeros((8, 8), dtype=torch.int16, device="meta"),
+            staged["qtables"][0])
     assert TH.subseq_pass.launches == 0 and TH.decode_write.launches == 0
     assert TH.decode_write_emit.launches == 0
     assert tidct.idct_stream_to_plane.launches == 0
+    assert tidct.dequant_idct_plane.launches == 0
 
 
 @pytest.fixture(scope="module")
