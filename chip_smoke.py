@@ -7,7 +7,7 @@ Drives `jpeggpu_tpu_torch` end to end and fails (non-zero exit, no result
 line) on the first phase that fails; nothing is caught and carried past:
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. builds the eight CUDA kernels from `jpeggpu_tpu_torch/kernels/csrc` and
+2. builds the nine CUDA kernels from `jpeggpu_tpu_torch/kernels/csrc` and
    the native host destuffer (the run fails where that one is missing, so
    that every host time below is the native destuffer's);
 3. small streams made with the port's encoder from a numpy seed (4:2:0 with
@@ -20,21 +20,25 @@ line) on the first phase that fails; nothing is caught and carried past:
    leftover scatter, and a garbage scan body; K7 and K8 are also held
    against their plain versions on made-up inputs that no decoder emits
    (sums that wrap, first data units out of range, windows that leave the
-   lanes);
+   lanes), and so are K1 and K2 (random words, random states and entry
+   states, saturated tables, garbage DC categories and codes of up to 16
+   bits, whose symbols escape the one-lookup symbol table or take the
+   reader's seek; K1's flags and the whole sync loop included);
 4. a 4032x3024 (12 MP) interleaved 4:2:0 JPEG, restart interval 252,
    quality 90, made from a seed: a strip of MCU rows is encoded with the
    numpy encoder and its restart segments are repeated to 189 rows. At
    these shapes each kernel's wrapper is held against its plain PyTorch
-   version on the same CUDA tensors (all exact, max_abs_err must be 0): K1
-   on the blind and on the shifted sync round, K2 on the whole coefficient
-   stream, K3 on all three components, and the records write path's K4
+   version on the same CUDA tensors (all exact, max_abs_err must be 0): K1,
+   the whole sync round in one launch, on the blind and on a shifted round
+   (states and convergence flag), K2 on the whole coefficient stream, K3 on all three components, and the records write path's K4
    (from the converged states), K5 (from the preparation of K4's records)
    and K6 (from K5's supertiles). The strip itself is checked against
    the golden decoder, and `jpeggpu_tpu_torch.decode` of the 12 MP image
    against the plain path (the same pipeline on CPU tensors);
 5. the main paths, each with every launch count set to 0 just before and
-   read just after: `jpeggpu_tpu_torch.decode(data)` must launch K1, K2
-   and K3 and none of K4-K8; `decode_jpeg_device(data, plan=build_plan(
+   read just after: `jpeggpu_tpu_torch.decode(data)` must launch K1 once
+   per sync round (as many as `sync_states` alone takes on the image), K2
+   once, K3 once per component and none of K4-K9; `decode_jpeg_device(data, plan=build_plan(
    parse(data), tuning=Tuning(write_mode="tiles")))`, and a `Decoder`
    under `set_default_tuning`, must launch K1, K4, K5, K6 and K3 and not
    K2, K7 or K8, and give the same planes;
@@ -56,8 +60,13 @@ line) on the first phase that fails; nothing is caught and carried past:
    were last touched tens of MB earlier, and the warm time for K1, whose
    rounds follow each other over the same 2.6 MB of words; both times are
    in the line. The kernels' times inside a real decode (the profiler's)
-   are printed beside them. Then end-to-end ms and MP/s with and without
-   host staging;
+   are printed beside them, and K1's and K2's cycles per symbol of the
+   longest lane (in-decode time x `clocks.sm` from nvidia-smi, read while
+   the card decodes, / the longest lane's symbols). The profiler's window
+   of one `sync_states` must show one K1 launch per round and, besides the
+   one read per round, no more than a set-up of two launches; a profiler
+   that shows no device work fails the run. Then end-to-end ms and MP/s with
+   and without host staging;
 7. one JSON line listing the kernels, the card's name and power limit, and
    the result line.
 
@@ -84,7 +93,7 @@ import torch
 
 import jpeggpu_tpu_torch as T
 from jpeggpu_tpu_torch import constants as C
-from jpeggpu_tpu_torch import golden, kernels, native, pipeline
+from jpeggpu_tpu_torch import convert, golden, kernels, native, pipeline
 from jpeggpu_tpu_torch.encoder import EncodeSpec, encode
 from jpeggpu_tpu_torch.ops import dc as DC
 from jpeggpu_tpu_torch.ops import huffman as H
@@ -95,19 +104,24 @@ from jpeggpu_tpu_torch.parallel import segments as SEG
 
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
-# dependent integer operations per decoded symbol, counted from
-# kernels/csrc/huffman_common.cuh: peek 1, table pick 3, limit search 8,
-# code/index 4, huffval 2, run/category 8, length and crossing test 3,
-# state update 8, buffer shift and refill 8; the write adds EXTEND 10 and
-# the store address 5
-K1_OPS_PER_SYMBOL = 45
-K2_OPS_PER_SYMBOL = 60
+# integer operations per decoded symbol, counted from the source. K1 and
+# K2 (kernels/csrc/subseq_pass.cu, decode_write.cu and next_symbol in
+# huffman_common.cuh) for a symbol that does not escape: peek and table
+# index 5, the load and the half 3, escape test 2, length, run and EOB 6,
+# crossing test and state update 9, buffer shift and refill (amortised) 8;
+# the write adds the category and EXTEND 12, the store address and bound
+# 10. K4 (emit_pass.cu, decode_symbol in huffman_common.cuh): peek 1,
+# table pick 3, limit search 8, code/index 4, huffval 2, run/category 8,
+# length and crossing test 3, state update 8, buffer shift and refill 8,
+# EXTEND 10, the record 5
+K1_OPS_PER_SYMBOL = 33
+K2_OPS_PER_SYMBOL = 55
+K4_OPS_PER_SYMBOL = 60
 # per pixel, from kernels/csrc/idct_stream.cu: two 8-point passes of 62
 # operations per 8 values, dequantise and wrap 3, level shift, clamp and
 # pack 6
 K3_OPS_PER_PIXEL = 25
-# K4 is K2 with the store address replaced by the record packing: the same
-# count. K5, from kernels/csrc/supertiles.cu: unpack, gate, address and add
+# K5, from kernels/csrc/supertiles.cu: unpack, gate, address and add
 # per record 10, zero and pack per output cell 2. K6, from
 # kernels/csrc/expand_supertiles.cu: per output cell one add per matching
 # supertile row and the pack, 3, plus the window walk per 8 cells
@@ -301,11 +315,9 @@ def check_equal_numpy(name, got, expect) -> None:
 def phase_environment(dev: torch.device) -> str:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    log(smi)
-    return smi.splitlines()[0]
+    card = smi("name,power.limit")
+    log(card)
+    return card
 
 
 def phase_build(dev: torch.device) -> None:
@@ -427,11 +439,141 @@ def phase_lane_kernels_any_input(dev: torch.device, seed: int) -> None:
                                  "on made-up inputs")
 
 
+def made_up_scan(dev: torch.device, seed: int, kind: str, shard: bool):
+    """A scan of 490 subsequences of random words in 512 lanes, cut into
+    seven restart segments, with the tables of `H.made_up_tables(kind)`
+    (three data units per MCU: slots (0, 1), (0, 1), (2, 3)). With `shard`
+    its first segment began three lanes before lane 0, as in a subsequence
+    shard: the word before the shard is staged in front of the words
+    (`lead_words` 1). Returns (cfg, arrs, ctx)."""
+    rng = np.random.default_rng(seed)
+    lanes, n_sub, du = 512, 490, 3
+    cuts = np.sort(rng.choice(np.arange(1, n_sub), 6, replace=False))
+    sizes = np.diff(np.concatenate([[0], cuts, [n_sub]]))
+    first = np.concatenate([[0], cuts])
+    seg_of = np.full(lanes, len(sizes) - 1, np.int32)
+    seg_of[:n_sub] = np.repeat(np.arange(len(sizes)), sizes)
+    seg_first = first[seg_of].astype(np.int32)
+    seg_nsub = sizes[seg_of].astype(np.int32)
+    if shard:
+        seg_first[seg_of == 0] -= 3
+        seg_nsub[seg_of == 0] += 3
+    words = rng.integers(0, 1 << 32, lanes * 32 + 1, dtype=np.uint32)
+    maxcode, vsm, huffval, fast = H.made_up_tables(kind)
+    cfg = H.ScanConfig(lanes=lanes, num_segments=len(sizes), du_per_mcu=du,
+                       mcus_per_seg=2000, total_mcus=2000 * len(sizes),
+                       comp_groups=((2, 0, 1), (3, 2, 3)), fast_tables=fast)
+    lead = 1 if shard else 0
+    words_t = torch.from_numpy(words.view(np.int32)).to(dev)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    arrs = H.ScanArrays(
+        words=words_t[1:] if lead else words_t[:-1],
+        seg_of_subseq=t(seg_of), seg_first_lane=t(seg_first),
+        seg_num_subseq=t(seg_nsub), maxcode=t(maxcode), vsm=t(vsm),
+        huffval=t(huffval),
+        symtab=convert.symbol_table(maxcode, vsm, huffval, fast).to(dev),
+        lead_words=lead)
+    ctx = H.make_ctx(cfg, arrs, num_subseq=n_sub if shard else None)
+    return cfg, arrs, ctx
+
+
+def phase_entropy_kernels_any_input(dev: torch.device, seed: int) -> None:
+    """K1 and K2 against their plain versions on made-up inputs that no
+    real stream has: random words, random previous-round states (some past
+    their lane's end, some anywhere in the next two subsequences), random
+    data units and zig-zag indices, a random entry state, and the tables of
+    `H.made_up_tables` (saturated; garbage categories and long codes, whose
+    symbols escape the symbol table or take the reader's seek). K1: the
+    blind round, two rounds from random states and one from converged
+    states, states and flags; the whole sync_states against its plain
+    version on CPU copies. K2: from the random states, with the offsets of
+    the round that decoded from them (so that no two lanes write one
+    cell)."""
+    rng = np.random.default_rng(seed + 5)
+    cpu = torch.device("cpu")
+    for kind in ("saturated", "garbage"):
+        for shard in (False, True):
+            cfg, arrs, ctx = made_up_scan(dev, seed, kind, shard)
+            valid = ctx.lane_valid
+            entry = None
+            if shard:
+                entry = torch.tensor([3 * 1024 - int(rng.integers(0, 32)),
+                                      int(rng.integers(0, 3)),
+                                      int(rng.integers(0, 64))],
+                                     dtype=torch.int32, device=dev)
+            errs = []
+
+            def k1_round(prev):
+                """One round against its plain version; the blind round
+                (no previous states) has no flag and no entry."""
+                flag = torch.zeros(1, dtype=torch.int32, device=dev)
+                ref_flag = torch.zeros_like(flag)
+                kw = {}
+                if prev[0] is not None:
+                    kw = dict(entry=entry, flag=flag)
+                got = H.subseq_pass(cfg, arrs, ctx, *prev, valid, **kw)
+                if kw:
+                    kw["flag"] = ref_flag
+                ref = H.subseq_pass_plain(cfg, arrs, ctx, *prev, valid, **kw)
+                errs.append(max(max_abs_err(a, b) for a, b in zip(got, ref)))
+                errs.append(max_abs_err(flag, ref_flag))
+                return ref, int(ref_flag)
+
+            k1_round((None, None, None))
+            rel = ctx.rel.to(torch.int64)
+            flags = []
+            for r in range(2):
+                near = (rel + 1) * 1024 + torch.from_numpy(
+                    rng.integers(-31, 40, cfg.lanes)).to(dev)
+                far = (rel + 1) * 1024 - 31 + torch.from_numpy(
+                    rng.integers(0, 2048, cfg.lanes)).to(dev)
+                pick = torch.from_numpy(rng.random(cfg.lanes) < 0.2).to(dev)
+                prev = (torch.where(pick, far, near).to(torch.int32),
+                        torch.from_numpy(rng.integers(
+                            0, cfg.du_per_mcu, cfg.lanes).astype(np.int32)
+                        ).to(dev),
+                        torch.from_numpy(rng.integers(
+                            0, 64, cfg.lanes).astype(np.int32)).to(dev))
+                (p, c, z, n), flag = k1_round(prev)
+                flags.append(flag)
+            # K2 from the last random states, with the offsets of the
+            # round that decoded from the same starts
+            n_off = H.symbol_offsets(cfg, arrs, n)
+            got = H.decode_write(cfg, arrs, ctx, *prev, n_off, entry=entry)
+            ref = H.decode_write_plain(cfg, arrs, ctx, *prev, n_off,
+                                       entry=entry)
+            errs.append(max_abs_err(got, ref))
+            written = int((got != 0).sum())
+            # the whole loop (its plain version on the same scan made on
+            # the CPU), and one more round from its fixed point
+            states = H.sync_states(cfg, arrs, ctx, entry=entry)
+            _, cpu_arrs, cpu_ctx = made_up_scan(cpu, seed, kind, shard)
+            ref_states = H.sync_states(
+                cfg, cpu_arrs, cpu_ctx,
+                entry=None if entry is None else entry.cpu())
+            errs.append(max(max_abs_err(a.cpu(), b)
+                            for a, b in zip(states, ref_states)))
+            _, converged = k1_round(states[:3])
+            sync(dev)
+            log(f"K1 / K2 on made-up inputs ({kind} tables, fast_tables "
+                f"{cfg.fast_tables}, {'shard with entry' if shard else 'scan'}"
+                f"): max_abs_err {max(errs)} against the plain versions; "
+                f"flags {flags} from random states, {converged} from the "
+                f"fixed point; K2 wrote {written} coefficients")
+            if max(errs) or converged:
+                raise AssertionError("K1 or K2 differs from its plain "
+                                     "version on made-up inputs")
+
+
 def phase_kernels(dev: torch.device, data: bytes, card: str):
     """Each kernel against its plain version at the main path's shapes;
     returns the kernel entries (without launch counts)."""
     plan = pipeline.build_plan(T.parse(data))
-    staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan), dev)
+    staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan), plan,
+                                   dev)
     sp, = plan.signature.scans
     cfg, arrs, qtables = sp.cfg, staged["scans"][0], staged["qtables"]
     ctx = H.make_ctx(cfg, arrs)
@@ -448,34 +590,38 @@ def phase_kernels(dev: torch.device, data: bytes, card: str):
         f"units, {cfg.total_positions * 2 / 1e6:.1f} MB of coefficients")
     entries = []
     tables = (arrs.maxcode, arrs.vsm, ctx.limits, arrs.huffval, ctx.slots)
+    named = {s for g in cfg.comp_groups for s in g[1:]}
+    # what a block of K1 or K2 reads of the symbol table: its named slots
+    symtab_bytes = 2 * len(named) << H.SYMTAB_BITS
 
-    # K1, blind round then shifted round
-    blind_p = ctx.rel * C.SUBSEQ_SIZE_BITS
-    zeros = torch.zeros_like(blind_p)
-    starts = {"blind": (blind_p, zeros, zeros)}
-    p, c, z, _ = H.subseq_pass(cfg, arrs, ctx, blind_p, zeros, zeros,
-                               ctx.lane_valid)
-    first = ctx.first_of_seg
-    starts["shifted"] = (torch.where(first, blind_p, torch.roll(p, 1)),
-                         torch.where(first, zeros, torch.roll(c, 1)),
-                         torch.where(first, zeros, torch.roll(z, 1)))
+    # K1, the blind round then a shifted round, states and flag
+    valid = ctx.lane_valid
+    blind = H.subseq_pass(cfg, arrs, ctx, None, None, None, valid)
+    rounds = {"blind": (None, None, None), "shifted": blind[:3]}
     k1 = {}
-    for which, (p0, c0, z0) in starts.items():
-        got = H.subseq_pass(cfg, arrs, ctx, p0, c0, z0, ctx.lane_valid)
+    for which, prev in rounds.items():
+        flag = None if which == "blind" else torch.zeros(
+            1, dtype=torch.int32, device=dev)
+        got = H.subseq_pass(cfg, arrs, ctx, *prev, valid, flag=flag)
+        ref_flag = None if flag is None else torch.zeros_like(flag)
         t0 = time.perf_counter()
-        ref = H.subseq_pass_plain(cfg, arrs, ctx, p0, c0, z0, ctx.lane_valid)
+        ref = H.subseq_pass_plain(cfg, arrs, ctx, *prev, valid, flag=ref_flag)
         sync(dev)
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+        if flag is not None:
+            err = max(err, max_abs_err(flag, ref_flag))
+            log(f"K1 shifted round: flag {int(flag)}, plain {int(ref_flag)}")
+
         def launch():
-            return H.subseq_pass(cfg, arrs, ctx, p0, c0, z0, ctx.lane_valid)
+            return H.subseq_pass(cfg, arrs, ctx, *prev, valid, flag=flag)
 
         ms, call_ms = time_ms(launch, dev)
         cold_ms = time_cold_ms(launch, dev)
         k1[which] = (err, ms, plain_ms, call_ms, cold_ms)
-        log(f"K1 subseq_pass {which} round: max_abs_err {err}, {ms:.4f} ms "
-            f"on the device with L2 warm, {cold_ms:.4f} ms cold "
-            f"({call_ms:.4f} ms a single call), plain {plain_ms:.1f} ms  "
+        log(f"K1 subseq_pass {which} round (the whole round): max_abs_err "
+            f"{err}, {ms:.4f} ms on the device with L2 warm, {cold_ms:.4f} ms "
+            f"cold ({call_ms:.4f} ms a single call), plain {plain_ms:.1f} ms  "
             f"[{card}]")
         if err:
             raise AssertionError(f"K1 differs from its plain version ({which})")
@@ -502,9 +648,13 @@ def phase_kernels(dev: torch.device, data: bytes, card: str):
     if k2_err:
         raise AssertionError("K2 differs from its plain version")
 
-    lane_in = nbytes(ctx.word_end, ctx.seg_base_bits, ctx.end_subseq,
-                     blind_p, zeros, zeros, ctx.lane_valid)
-    k1_bytes = nbytes(arrs.words, *tables) + lane_in + 4 * 4 * lanes
+    # per lane: word_end, seg_base_bits, end_subseq, valid and three states
+    # (K1: of the previous round, and rel; K2, K4: the start states); K1
+    # writes four states and the flag
+    lane_in = (nbytes(ctx.word_end, ctx.seg_base_bits, ctx.end_subseq, valid)
+               + 3 * 4 * lanes)
+    k1_bytes = (nbytes(arrs.words, *tables, ctx.rel) + symtab_bytes + lane_in
+                + 4 * 4 * lanes + 4)
     b_ms, b_by = bound(k1_bytes, symbols * K1_OPS_PER_SYMBOL)
     entries.append(dict(
         name="subseq_pass", route="cuda",
@@ -516,8 +666,8 @@ def phase_kernels(dev: torch.device, data: bytes, card: str):
         ms_warm_l2=k1["shifted"][1], ms_cold_l2=k1["shifted"][4],
         ms_blind_round=k1["blind"][1], plain_ms_blind_round=k1["blind"][2],
         symbols=symbols))
-    k2_bytes = (nbytes(arrs.words, *tables, ctx.natural) + lane_in
-                + 2 * 4 * lanes + nbytes(coeffs))
+    k2_bytes = (nbytes(arrs.words, *tables, ctx.natural) + symtab_bytes
+                + lane_in + 2 * 4 * lanes + nbytes(coeffs))
     b_ms, b_by = bound(k2_bytes, symbols * K2_OPS_PER_SYMBOL)
     entries.append(dict(
         name="decode_write", route="cuda",
@@ -630,7 +780,7 @@ def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
         f"stream), at most {int(m.max())} in a lane, buffer {tuple(rec.shape)} "
         f"= {nbytes(rec) / 1e6:.1f} MB left unfilled past each lane's count")
     b_ms, b_by = bound(decode_in_bytes + 2 * 4 * lanes + 4 * records
-                       + nbytes(m), records * K2_OPS_PER_SYMBOL)
+                       + nbytes(m), records * K4_OPS_PER_SYMBOL)
     entries.append(dict(
         name="decode_write_emit", route="cuda",
         source="jpeggpu_tpu_torch/kernels/csrc/emit_pass.cu",
@@ -783,18 +933,29 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
     """The main path with the launch counts read around it, its output
     against the plain path, and the end-to-end times."""
     planes, launches, by_slot = counted(lambda: T.decode(data, device=dev))
-    log(f"main path launches: {launches} (sync rounds = subseq_pass "
-        f"launches), idct_stream_to_plane by first slot of the component: "
-        f"{by_slot}")
+    plan = pipeline.build_plan(T.parse(data))
+    sp, = plan.signature.scans
+    arrs = pipeline.stage_inputs(pipeline.build_inputs(data, plan), plan,
+                                 dev)["scans"][0]
+    _, rounds, _ = counted(lambda: H.sync_states(
+        sp.cfg, arrs, H.make_ctx(sp.cfg, arrs)))
+    rounds = rounds["subseq_pass"]
+    log(f"main path launches: {launches}, idct_stream_to_plane by first "
+        f"slot of the component: {by_slot}; sync_states alone on the same "
+        f"image: {rounds} rounds (the blind one included), one K1 launch "
+        f"each")
     n_comps = len(T.parse(data).components)
     records_kernels = ("decode_write_emit",) + SUPER_KERNELS
-    if not (launches["subseq_pass"] >= 2 and launches["decode_write"] == 1
+    if not (launches["subseq_pass"] == rounds >= 2
+            and launches["decode_write"] == 1
             and launches["idct_stream_to_plane"] == n_comps
             and len(by_slot) == n_comps and all(by_slot.values())
             and not any(launches[k] for k in records_kernels + LANE_KERNELS
                         + SHARDED_KERNELS)):
-        raise AssertionError(f"the default path must launch K1, K2 and K3 "
-                             f"and no other kernel: {launches} {by_slot}")
+        raise AssertionError(f"the default path must launch K1 once per "
+                             f"sync round, K2 once and K3 once per "
+                             f"component, and no other kernel: {launches} "
+                             f"{by_slot}")
 
     t0 = time.perf_counter()
     plain = T.decode(data, device="cpu")
@@ -879,11 +1040,13 @@ def profile_decode(dev, card, label, run, decode_ms, own) -> None:
 
 
 def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
-                          decode_ms: float, tiles_decode_ms: float) -> None:
+                          decode_ms: float, tiles_decode_ms: float):
     """Host clock per stage of one decode (each stage ends in a
     synchronise, median of 7) on the default path and, for the write stage
     and the DC stage, on the records path; then each path's device busy and
-    idle share."""
+    idle share, the sync loop's device work, and K1's and K2's cycles per
+    symbol of the longest lane. Returns {kernel: (ms in the decode, cycles
+    per symbol)} for K1 and K2."""
     def med(fn):
         return host_ms(fn, dev)
 
@@ -892,8 +1055,16 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
         lambda: pipeline.build_plan(T.parse(data)))
     stages["host destuff + tables"], inputs = med(
         lambda: pipeline.build_inputs(data, plan))
-    stages["copy in"], staged = med(lambda: pipeline.stage_inputs(inputs, dev))
     sp, = plan.signature.scans
+    # the symbol table that "copy in" builds: by its builder, and through
+    # the cache that "copy in" takes after its first decode of these tables
+    packed = tuple(inputs["scans"][0][k] for k in ("maxcode", "vsm", "huffval"))
+    stages["symbol table built (build_symbol_table)"], _ = med(
+        lambda: H.build_symbol_table(*packed, sp.cfg.fast_tables))
+    stages["symbol table cached (convert.symbol_table)"], _ = med(
+        lambda: convert.symbol_table(*packed, sp.cfg.fast_tables))
+    stages["copy in"], staged = med(
+        lambda: pipeline.stage_inputs(inputs, plan, dev))
     cfg, arrs, qtables = sp.cfg, staged["scans"][0], staged["qtables"]
     stages["make_ctx"], ctx = med(lambda: H.make_ctx(cfg, arrs))
     stages["sync_states"], (p, c, z, n) = med(
@@ -945,12 +1116,31 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
     for name, ms in tiles.items():
         log(f"records path stage {name}: {ms:.3f} ms  [{card}]")
 
-    profile_decode(
+    times = profile_decode(
         dev, card, "default path",
         lambda: pipeline.decode_pipeline(plan.signature, staged["scans"],
                                          qtables),
         decode_ms, ("::subseq_pass_kernel", "::decode_write_kernel",
                     "::idct_stream_to_plane_kernel"))
+    sm_mhz = busy_sm_clock(dev, lambda: pipeline.decode_pipeline(
+        plan.signature, staged["scans"], qtables))
+    clocks = f"{sm_mhz:.0f} MHz sampled during decodes, {smi('clocks.max.sm')} max"
+    longest = int(m.max())  # symbols of the longest lane (K4's records)
+    per_symbol = {}
+    for name in ("::subseq_pass_kernel", "::decode_write_kernel"):
+        ms = statistics.median(times.get(name) or [float("nan")])
+        per_symbol[name] = (ms, ms * 1e-3 * sm_mhz * 1e6 / longest)
+        log(f"{name.lstrip(':')} in the decode: {ms:.4f} ms (median of "
+            f"{len(times.get(name, []))}) x {sm_mhz:.0f} MHz (clocks.sm: "
+            f"{clocks}) / {longest} symbols of the longest lane = "
+            f"{per_symbol[name][1]:.0f} cycles per symbol  [{card}]")
+    sync_window(dev, card, cfg, arrs, ctx)
+    total, *longer, seeks = symbol_escapes(cfg, arrs, ctx, (p, c, z, n_off))
+    log(f"symbols: {total}; codes longer than 8 / 9 / 10 / 11 bits: "
+        + " / ".join(f"{k} ({k / total:.2%})" for k in longer)
+        + f"; symbols of 32 bits or more: {seeks}. A warp meets an escape of "
+        f"the {H.SYMTAB_BITS}-bit table in about "
+        f"{1 - (1 - longer[2] / total) ** 32:.0%} of its iterations")
     profile_decode(
         dev, card, "records path",
         lambda: pipeline.decode_pipeline(tplan.signature, staged["scans"],
@@ -958,6 +1148,99 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
         tiles_decode_ms, ("::subseq_pass_kernel", "::emit_pass_kernel",
                           "::supertiles_kernel", "::expand_supertiles_kernel",
                           "::idct_stream_to_plane_kernel"))
+    return per_symbol
+
+
+def symbol_escapes(cfg, arrs, ctx, states):
+    """The scan's symbols and, of them, those whose code is longer than 8,
+    9, 10 (the symbol table's width, SYMTAB_BITS) and 11 bits, and those of
+    32 bits or more: the writing decode's walk (`decode_write_plain`'s, from
+    the synced states (p, c, z, n_off), to each segment's position bound)
+    without its stores, on whatever device holds the tensors."""
+    sp, sc, sz, pos0, _, active, _, bound = H._write_inputs(cfg, arrs, ctx,
+                                                            *states)
+    t = H._plain_operands(arrs, ctx)
+    p, c, z = (x.to(torch.int64) for x in (sp, sc, sz))
+    pos, bound = pos0.to(torch.int64), bound.to(torch.int64)
+    counts = torch.zeros(6, dtype=torch.int64, device=p.device)
+    while True:
+        alive = active & (pos < bound)
+        if not bool(alive.any()):
+            break
+        pair = t.slots.index_select(0, c)
+        tbl = torch.where(z == 0, pair[:, 0], pair[:, 1])
+        code_len, _ = H._code(cfg.fast_tables, t, H._load32(t, p), tbl)
+        p2, c, z, _, run, commit = H._symbol_step(cfg, t, p, c, z, alive,
+                                                  need_value=False)
+        counts += torch.stack(
+            [commit.sum()] + [(commit & (code_len > b)).sum()
+                              for b in (8, 9, 10, 11)]
+            + [(commit & (p2 - p >= 32)).sum()])
+        pos = torch.where(commit, pos + run + 1, pos)
+        p, active = p2, commit
+    return counts.tolist()
+
+
+def smi(query: str) -> str:
+    """One line of `nvidia-smi --query-gpu=<query>` for the card."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def busy_sm_clock(dev: torch.device, work) -> float:
+    """The SM clock in MHz, `clocks.sm` of nvidia-smi read while the card
+    runs `work` again and again (an idle card reads its idle clock)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 60
+        while proc.poll() is None and time.monotonic() < deadline:
+            work()
+            sync(dev)
+        out, _ = proc.communicate(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        raise RuntimeError(f"nvidia-smi failed: {proc.returncode}")
+    return float(out.strip().splitlines()[0])
+
+
+def sync_window(dev, card, cfg, arrs, ctx) -> None:
+    """The profiler's device work inside one sync_states: one K1 launch per
+    round and, besides, only a set-up that does not grow with the rounds
+    (the flags' zero fill) and the one read per round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, counts, _ = counted(lambda: H.sync_states(cfg, arrs, ctx))
+    rounds = counts["subseq_pass"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        H.sync_states(cfg, arrs, ctx)
+        sync(dev)
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    if not names:
+        raise AssertionError("sync_states window: the profiler reported no "
+                             "device work, so the window cannot be checked")
+    k1 = sum(v for k, v in names.items() if "subseq_pass_kernel" in k)
+    copies = sum(v for k, v in names.items() if "Memcpy" in k)
+    other = {k[:60]: v for k, v in names.items()
+             if "subseq_pass_kernel" not in k and "Memcpy" not in k}
+    log(f"sync_states window on the device: {rounds} rounds, {k1} K1 "
+        f"launches, {copies} copies to the host, other device work {other}  "
+        f"[{card}]")
+    if k1 != rounds or sum(other.values()) > 2:
+        raise AssertionError("sync_states must launch K1 once per round and "
+                             "nothing else between rounds")
 
 
 def lane_path_kernels(dev: torch.device, data: bytes, card: str):
@@ -976,7 +1259,8 @@ def lane_path_kernels(dev: torch.device, data: bytes, card: str):
     if W.resolve_tile_mode(cfg.tuning.tile_mode, cfg.tile_auto) != "lane":
         raise AssertionError("tile_mode='auto' did not resolve to the "
                              "per-lane shape on the sparse image")
-    staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan), dev)
+    staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan), plan,
+                                   dev)
     arrs = staged["scans"][0]
     ctx = H.make_ctx(cfg, arrs)
     p, c, z, n = H.sync_states(cfg, arrs, ctx)
@@ -1128,7 +1412,8 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
         finally:
             T.set_default_tuning(base_tuning)
         log(f"{label}: {W.scatter_leftover.lanes} leftover lane(s)")
-        staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan), dev)
+        staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan),
+                                       plan, dev)
         profile_decode(
             dev, card, label,
             lambda: pipeline.decode_pipeline(plan.signature, staged["scans"],
@@ -1369,6 +1654,7 @@ def main() -> int:
     phase_build(dev)
     phase_small_streams(dev, args.seed)
     phase_lane_kernels_any_input(dev, args.seed)
+    phase_entropy_kernels_any_input(dev, args.seed)
     phase_k9_any_input(dev, args.seed)
     phase_sharded_small_streams(dev, args.seed)
 
@@ -1385,7 +1671,12 @@ def main() -> int:
     entries = phase_kernels(dev, data, card)
     (launches, by_slot, tlaunches, tby_slot, decode_ms,
      tiles_decode_ms) = phase_main_path(dev, data, card)
-    phase_where_time_goes(dev, data, card, decode_ms, tiles_decode_ms)
+    per_symbol = phase_where_time_goes(dev, data, card, decode_ms,
+                                       tiles_decode_ms)
+    for e in entries:
+        key = f"::{e['name']}_kernel"
+        if key in per_symbol:
+            e["ms_in_decode"], e["cycles_per_symbol"] = per_symbol[key]
 
     strip, sparse = make_image(args.seed, QUALITY_SPARSE)
     golden_strip = repeat_strip(strip, 48)
@@ -1428,9 +1719,7 @@ def main() -> int:
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
-    log(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip())
+    log(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -106,7 +106,8 @@ class Decoder:
 
     # -- phase 3: host->device staging (jpeggpu.h:90-93) --
     def transfer(self) -> None:
-        self._device_inputs = stage_inputs(self._host_inputs(), self._device)
+        self._device_inputs = stage_inputs(
+            self._host_inputs(), self._require_plan(), self._device)
 
     # -- phase 4: decode (jpeggpu.h:102-109) --
     def decode(self, *, keep_on_device: bool = False) -> List:

@@ -5,7 +5,9 @@ package, in the tests) is the staged state of one image: the scan geometry
 as plain ints and tuples, the per-scan numpy arrays that
 ``pipeline.build_scan_inputs`` makes (``words``, ``seg_of_subseq``,
 ``seg_first_lane``, ``seg_num_subseq``, ``maxcode``, ``vsm``, ``huffval``)
-and the quantisation tables. The JAX package's ``build_plan`` /
+and the quantisation tables. The symbol table of K1 and K2 is built here,
+from the packed tables under the plan's ``fast_tables``, whenever a scan or
+a shard is staged (:func:`symbol_table`). The JAX package's ``build_plan`` /
 ``build_inputs`` produce the same fields under the same names, so a test
 can pull them out of a JAX plan and hand them over; with that both packages
 decode the same staged state. The intermediate arrays of the records write
@@ -21,13 +23,14 @@ here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping, Tuple
 
 import numpy as np
 import torch
 
 from .config import Tuning
-from .ops.huffman import ScanArrays, ScanConfig
+from .ops.huffman import ScanArrays, ScanConfig, build_symbol_table
 
 GEOMETRY_FIELDS = ("lanes", "num_segments", "du_per_mcu", "mcus_per_seg",
                    "total_mcus", "comp_groups", "fast_tables", "tile_d",
@@ -69,10 +72,32 @@ def scan_config(geometry: Mapping) -> ScanConfig:
     )
 
 
+def symbol_table(maxcode, vsm, huffval, fast_tables: bool) -> torch.Tensor:
+    """The symbol table of K1 and K2 (``ops.huffman.build_symbol_table``)
+    of the packed tables under the plan's ``fast_tables``, as a CPU tensor
+    of its own. Built once per distinct set of tables: most streams carry
+    the same few (those of T.81 Annex K), and a build costs milliseconds
+    of eager tensor code on the host."""
+    key = tuple(np.ascontiguousarray(a, np.int32).tobytes()
+                for a in (maxcode, vsm, huffval))
+    return torch.from_numpy(_symbol_table(*key, bool(fast_tables)).copy())
+
+
+@functools.lru_cache(maxsize=64)
+def _symbol_table(maxcode: bytes, vsm: bytes, huffval: bytes,
+                  fast_tables: bool) -> np.ndarray:
+    def i32(b):
+        return np.frombuffer(b, np.int32).copy()
+
+    return build_symbol_table(i32(maxcode), i32(vsm), i32(huffval),
+                              fast_tables)
+
+
 def scan_arrays(scan_inputs: Mapping[str, np.ndarray],
-                device: torch.device | str) -> ScanArrays:
-    """Per-scan numpy arrays -> :class:`ScanArrays` on ``device``. The
-    uint32 word stream is carried as its int32 bit patterns."""
+                device: torch.device | str, fast_tables: bool) -> ScanArrays:
+    """Per-scan numpy arrays -> :class:`ScanArrays` on ``device``, with the
+    symbol table under the plan's ``fast_tables``. The uint32 word stream
+    is carried as its int32 bit patterns."""
     def i32(name, shape):
         a = np.ascontiguousarray(scan_inputs[name])
         if a.dtype == np.uint32:
@@ -88,11 +113,13 @@ def scan_arrays(scan_inputs: Mapping[str, np.ndarray],
         maxcode=i32("maxcode", (8, 16)),
         vsm=i32("vsm", (8, 16)),
         huffval=i32("huffval", -1),
+        symtab=symbol_table(scan_inputs["maxcode"], scan_inputs["vsm"],
+                            scan_inputs["huffval"], fast_tables).to(device),
     )
 
 
 def shard_arrays(inputs: Mapping[str, np.ndarray], d: int,
-                 device: torch.device | str) -> ScanArrays:
+                 device: torch.device | str, fast_tables: bool) -> ScanArrays:
     """Shard ``d`` of stacked shard inputs -> :class:`ScanArrays` on
     ``device``. ``inputs`` is what ``build_shard_inputs`` or
     ``build_subseq_shard_inputs`` of either package returns: numpy arrays
@@ -101,6 +128,7 @@ def shard_arrays(inputs: Mapping[str, np.ndarray], d: int,
     ``inputs`` has ``prev_word`` (subsequence shards), the words are staged
     behind the word before the shard, ``ScanArrays.words`` is the view that
     starts after it and ``lead_words`` is 1 (see ``ops.huffman.ScanArrays``).
+    The symbol table is built under the plan's ``fast_tables``.
     """
     def i32(a, shape=-1):
         a = np.asarray(a)
@@ -123,6 +151,8 @@ def shard_arrays(inputs: Mapping[str, np.ndarray], d: int,
         maxcode=torch.from_numpy(i32(inputs["maxcode"], (8, 16))).to(device),
         vsm=torch.from_numpy(i32(inputs["vsm"], (8, 16))).to(device),
         huffval=torch.from_numpy(i32(inputs["huffval"])).to(device),
+        symtab=symbol_table(inputs["maxcode"], inputs["vsm"],
+                            inputs["huffval"], fast_tables).to(device),
         lead_words=lead,
     )
 
@@ -135,7 +165,7 @@ def from_reference_inputs(geometry: Mapping,
     ``device``; ``qtables`` is int32[4, 64], raw DQT bytes in natural order.
     """
     cfg = scan_config(geometry)
-    arrs = scan_arrays(scan_inputs, device)
+    arrs = scan_arrays(scan_inputs, device, cfg.fast_tables)
     if arrs.words.numel() != cfg.lanes * 32:
         raise ValueError(
             f"words holds {arrs.words.numel()} words, geometry says "

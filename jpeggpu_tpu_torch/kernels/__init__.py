@@ -9,9 +9,10 @@ started together, in the package's build directory, and loaded with
 imported: a machine with no ``nvcc`` can import the package and run the
 plain versions on CPU tensors.
 
-Nine kernels: the sync round (``subseq_pass.cu``), the direct writing
-decode (``decode_write.cu``), the stream -> plane tail (``idct_stream.cu``),
-the records write path: the emitting decode (``emit_pass.cu``), its
+Nine kernels: the whole sync round (``subseq_pass.cu``), the direct writing
+decode (``decode_write.cu``; both decode by the one-lookup symbol table),
+the stream -> plane tail (``idct_stream.cu``), the records write path: the
+emitting decode (``emit_pass.cu``), its
 supertile shape (``supertiles.cu``, ``expand_supertiles.cu``) and its
 per-lane shape for sparse scans (``tiles.cu``, ``expand_tiles.cu``); and
 the plane IDCT of the sharded decode's tail (``idct_blocks.cu``).
@@ -45,13 +46,16 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U64 = ctypes.c_uint64
 
 # C function -> (source file, headers it includes, argtypes)
 _KERNELS = {
     "jpeggpu_subseq_pass": (
-        "subseq_pass.cu", ("huffman_common.cuh",), [_P] * 17 + [_I] * 3 + [_P]),
+        "subseq_pass.cu", ("huffman_common.cuh",),
+        [_P] * 20 + [_U64] + [_I] * 3 + [_P]),
     "jpeggpu_decode_write": (
-        "decode_write.cu", ("huffman_common.cuh",), [_P] * 17 + [_I] * 3 + [_P]),
+        "decode_write.cu", ("huffman_common.cuh",),
+        [_P] * 17 + [_U64] + [_I] * 3 + [_P]),
     "jpeggpu_idct_stream_to_plane": (
         "idct_stream.cu", ("idct_common.cuh",), [_P] * 4 + [_I] * 6 + [_P]),
     "jpeggpu_emit_pass": (

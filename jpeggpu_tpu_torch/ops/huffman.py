@@ -17,13 +17,18 @@ Decode-state semantics:
   c  data-unit index within the MCU, z  zig-zag index within the data unit.
 
 Three functions here are CUDA kernels on the card: :func:`subseq_pass` (K1,
-every sync round), :func:`decode_write` (K2, the writing decode that stores
+one whole sync round: start states, the pass, the freeze and the
+convergence test), :func:`decode_write` (K2, the writing decode that stores
 into the coefficient stream) and :func:`decode_write_emit` (K4, the writing
 decode that emits packed records for the records write path of
 ``ops/write.py``). Each has its plain PyTorch version beside it, lock-step
 over all lanes with gathers for the bit loads and table lookups; a wrapper
 takes the plain version only for CPU tensors and launches its kernel for
-CUDA tensors.
+CUDA tensors. K1 and K2 resolve a symbol whose code fits in
+:data:`SYMTAB_BITS` bits with one lookup in the per-scan symbol table
+(:func:`build_symbol_table`); :func:`_decode_symbol_table` is a tensor
+model of that decode for the tests, while the plain versions keep
+:func:`_decode_symbol` as their semantics.
 The word stream is carried as int32 bit patterns of the big-endian uint32
 words (the kernels reinterpret them as unsigned, the plain versions widen
 to int64).
@@ -100,6 +105,10 @@ class ScanArrays:
     maxcode: torch.Tensor  # int32[8,16]
     vsm: torch.Tensor  # int32[8,16] valptr - mincode
     huffval: torch.Tensor  # int32[8*256]
+    # int16[8 << SYMTAB_BITS]: the one-lookup symbol table of K1 and K2
+    # (build_symbol_table), built on the host when the scan is staged
+    # (convert.symbol_table)
+    symtab: torch.Tensor
     # words staged in front of ``words`` in its storage (0 or 1). A
     # subsequence shard (parallel/segments.py, which gives its segments a
     # negative ``seg_first_lane``) has 1: the word before the shard, since
@@ -131,6 +140,17 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return ((x + 0x80000000) & _M32) - 0x80000000
 
 
+def _limits(maxcode: torch.Tensor) -> torch.Tensor:
+    """limits[t, j] = first 32-bit-left-aligned value whose code is longer
+    than j+1 bits, as int32 bit patterns; the running max makes empty
+    lengths inherit, so that `data >= limits[j]` is exactly "code length >
+    j+1". A saturated table would overflow 32 bits here and is routed to
+    the maxcode path."""
+    shift = 31 - torch.arange(16, device=maxcode.device, dtype=torch.int64)
+    raw_lim = (((maxcode.to(torch.int64) + 1) & _M32) << shift) & _M32
+    return _wrap_i32(torch.cummax(raw_lim, dim=1).values).to(torch.int32)
+
+
 def make_ctx(cfg: ScanConfig, arrs: ScanArrays, num_subseq=None) -> Ctx:
     """Build the decode context on the device of ``arrs``. ``num_subseq``,
     if given, makes exactly the lanes below it valid (a shard of the
@@ -138,13 +158,7 @@ def make_ctx(cfg: ScanConfig, arrs: ScanArrays, num_subseq=None) -> Ctx:
     subsequences)."""
     dev = arrs.words.device
     lanes = cfg.lanes
-    # limits[t, j] = first 32-bit-left-aligned value whose code is longer
-    # than j+1 bits; the running max makes empty lengths inherit, so that
-    # `data >= limits[j]` is exactly "code length > j+1". A saturated table
-    # would overflow 32 bits here and is routed to the maxcode path.
-    shift = 31 - torch.arange(16, device=dev, dtype=torch.int64)
-    raw_lim = (((arrs.maxcode.to(torch.int64) + 1) & _M32) << shift) & _M32
-    limits = _wrap_i32(torch.cummax(raw_lim, dim=1).values).to(torch.int32)
+    limits = _limits(arrs.maxcode)
 
     slots = np.zeros((cfg.du_per_mcu, 2), np.int32)
     start = 0
@@ -243,6 +257,33 @@ def _category_slow(t: _Plain, data, tbl):
     return le.to(torch.int8).argmax(dim=1)
 
 
+def _code(fast_tables: bool, t: _Plain, data, tbl):
+    """Code length and symbol value (``huffval`` entry) of the code at the
+    top of ``data`` in table ``tbl``, int64: the canonical-limit search
+    where ``fast_tables``, else the maxcode walk."""
+    if fast_tables:
+        l_idx = _category_fast(t, data, tbl)
+    else:
+        l_idx = _category_slow(t, data, tbl)
+    cat_len = l_idx + 1
+    code = data >> (32 - cat_len)
+    vsm = t.vsm[tbl, l_idx]
+    idx = (vsm + code) & 0xFF
+    return cat_len, t.huffval[tbl * 256 + idx]
+
+
+def _extend(data, cat_len, cat):
+    """The value bits after a code of ``cat_len`` bits, EXTENDed (T.81
+    F.12); shift amounts guarded for a garbage category, int32 wraparound
+    written out, 0 where ``cat`` is 0."""
+    off = ((data << (cat_len & 31)) & _M32) >> ((32 - cat) & 31)
+    off = _wrap_i32(off)
+    one = _wrap_i32(torch.ones_like(cat) << cat.clamp(max=31))
+    half = one >> 1
+    value = torch.where(off < half, _wrap_i32(off - one + 1), off)
+    return torch.where(cat > 0, value, 0)
+
+
 def _decode_symbol(cfg: ScanConfig, t: _Plain, data, c, z,
                    need_value: bool = True):
     """One symbol on all lanes. Returns (length, sym, run), int64.
@@ -253,15 +294,7 @@ def _decode_symbol(cfg: ScanConfig, t: _Plain, data, c, z,
     is_dc = z == 0
     pair = t.slots.index_select(0, c)  # (lanes, 2)
     tbl = torch.where(is_dc, pair[:, 0], pair[:, 1])
-    if cfg.fast_tables:
-        l_idx = _category_fast(t, data, tbl)
-    else:
-        l_idx = _category_slow(t, data, tbl)
-    cat_len = l_idx + 1
-    code = data >> (32 - cat_len)
-    vsm = t.vsm[tbl, l_idx]
-    idx = (vsm + code) & 0xFF
-    sym_cat = t.huffval[tbl * 256 + idx]
+    cat_len, sym_cat = _code(cfg.fast_tables, t, data, tbl)
 
     run_ac = sym_cat >> 4
     cat_ac = sym_cat & 0xF
@@ -272,16 +305,141 @@ def _decode_symbol(cfg: ScanConfig, t: _Plain, data, c, z,
     length = cat_len + cat
     if not need_value:
         return length, torch.zeros_like(cat), run
+    return length, _extend(data, cat_len, cat), run
 
-    # value bits (T.81 F.12 EXTEND); shift amounts guarded for garbage cat,
-    # int32 wraparound written out
-    off = ((data << (cat_len & 31)) & _M32) >> ((32 - cat) & 31)
-    off = _wrap_i32(off)
-    one = _wrap_i32(torch.ones_like(cat) << cat.clamp(max=31))
-    half = one >> 1
-    value = torch.where(off < half, _wrap_i32(off - one + 1), off)
-    sym = torch.where(cat > 0, value, 0)
-    return length, sym, run
+
+# --- the one-lookup symbol table of K1 and K2 --------------------------------
+#
+# Entry [slot << SYMTAB_BITS | prefix] (int16) holds what a code whose first
+# SYMTAB_BITS bits are `prefix` decodes to in table `slot`, as a symbol of
+# the slot's class: DC for an even slot, AC for an odd one (slot = table id
+# * 2 + class, so a scan names even slots for DC only and odd ones for AC).
+# An entry packs the symbol's total length (code plus value bits, 5 bits),
+# its category (the value bits, 5), its AC run (4; 15 for ZRL), an EOB flag
+# (the EOB run 63 - z depends on z, so the kernel computes it) and an
+# escape flag: a code longer than SYMTAB_BITS bits, or a symbol of 32 bits
+# or more (only a garbage DC category is that long, and it takes the
+# reader's `seek`). An escaped symbol goes through _decode_symbol's search
+# unchanged.
+
+SYMTAB_BITS = 10
+SYMTAB_RUN_SHIFT = 10
+SYMTAB_EOB = 1 << 14
+SYMTAB_ESC = 1 << 15
+
+
+def check_slot_classes(cfg: ScanConfig, where: str) -> None:
+    """The symbol table reads a slot in its own class: refuse a scan
+    geometry that names an odd slot for DC or an even one for AC (a parsed
+    stream never does)."""
+    for _, dc, ac in cfg.comp_groups:
+        if dc % 2 != C.HUFF_DC or ac % 2 != C.HUFF_AC:
+            raise ValueError(
+                f"{where}: the symbol table needs DC tables in even slots and "
+                f"AC tables in odd ones, got (dc {dc}, ac {ac})")
+
+
+def build_symbol_table(maxcode, vsm, huffval, fast_tables: bool) -> np.ndarray:
+    """The per-scan symbol table of K1 and K2 from the packed Huffman
+    tables (numpy int32 ``[8, 16]``, ``[8, 16]``, ``[8 * 256]``), as numpy
+    int16[8 << SYMTAB_BITS], built on the host under the scan's
+    ``fast_tables``.
+
+    Exact by construction: the code length and symbol come from
+    :func:`_code`, the function :func:`_decode_symbol` calls, applied to
+    each prefix followed by zeros. Both searches decide a length of at
+    most SYMTAB_BITS from the prefix alone (``limits[j]`` carries only its
+    top j+1 bits, and the maxcode walk compares j+1-bit prefixes), so the
+    tail does not matter wherever the entry does not escape."""
+    nb = SYMTAB_BITS
+    i64 = torch.int64
+    mc = torch.from_numpy(np.asarray(maxcode, np.int32).reshape(8, 16))
+    t = _Plain(words=None, lead=0, word_end=None, seg_base_bits=None,
+               end_subseq=None, slots=None,
+               limits=_limits(mc).to(i64) & _M32, maxcode=mc.to(i64),
+               vsm=torch.from_numpy(
+                   np.asarray(vsm, np.int32).reshape(8, 16)).to(i64),
+               huffval=torch.from_numpy(
+                   np.asarray(huffval, np.int32).reshape(-1)).to(i64))
+    tbl = torch.arange(8, dtype=i64).repeat_interleave(1 << nb)
+    data = torch.arange(1 << nb, dtype=i64).repeat(8) << (32 - nb)
+    cat_len, sym_cat = _code(fast_tables, t, data, tbl)
+    is_dc = tbl % 2 == C.HUFF_DC
+    run_ac, cat_ac = sym_cat >> 4, sym_cat & 0xF
+    cat = torch.where(is_dc, sym_cat, cat_ac)
+    eob = ~is_dc & (cat_ac == 0) & (run_ac != 15)
+    run = torch.where(is_dc | eob, 0, run_ac)
+    length = cat_len + cat
+    entry = torch.where(
+        (cat_len > nb) | (length >= 32), SYMTAB_ESC,
+        length | (cat << 5) | (run << SYMTAB_RUN_SHIFT)
+        | torch.where(eob, SYMTAB_EOB, 0))
+    return (((entry + 0x8000) & 0xFFFF) - 0x8000).to(torch.int16).numpy()
+
+
+# Huffman tables no encoder writes, for the checks of the symbol table's
+# escapes (the tests and chip_smoke.py): per slot 0-3, the code counts by
+# length in bits and the symbol values. "saturated": full code spaces, so
+# that a plan takes the maxcode walk. "garbage": slot 0 holds DC
+# categories above 15 (symbols of 32 bits and more, the reader's seek),
+# slots 1 and 2 codes of up to 16 bits (escapes of the table), slot 3 AC
+# categories above 10.
+MADE_UP_TABLES = {
+    "saturated": (({1: 1, 2: 1, 3: 2}, [0, 3, 20, 200]),
+                  ({2: 2, 4: 5, 9: 40}, list(range(1, 48))),
+                  ({1: 2}, [0, 5]),
+                  ({1: 2}, [0x00, 0x11])),
+    "garbage": (({2: 2, 3: 2, 4: 2, 5: 2, 6: 3},
+                 [0, 16, 17, 20, 25, 27, 28, 29, 30, 31, 255]),
+                ({2: 1, 9: 120, 12: 40, 14: 50, 16: 45}, "random"),
+                ({1: 1, 10: 100, 11: 100, 16: 50},
+                 [v % 12 for v in range(251)]),
+                ({2: 2, 3: 2, 6: 9},
+                 [0x00, 0xF0, 0x01, 0x11, 0x0F, 0xFF, 0x3A, 0x15, 0x2E,
+                  0xA1, 0x08, 0xE9, 0x71])),
+}
+
+
+def made_up_tables(kind: str):
+    """The packed tables of ``MADE_UP_TABLES[kind]`` (slot 1's "random"
+    values are 256 bytes from numpy seed 9) and the ``fast_tables`` a plan
+    would take for them: (maxcode, vsm, huffval, fast_tables)."""
+    from ..tables import build_huffman_table, pack_huffman_tables
+
+    tables = []
+    for by_length, values in MADE_UP_TABLES[kind]:
+        counts = np.zeros(16, np.int64)
+        for length, n in by_length.items():
+            counts[length - 1] = n
+        if values == "random":
+            values = np.random.default_rng(9).integers(0, 256, 256)
+        tables.append(build_huffman_table(counts, np.asarray(values, np.uint8)))
+    return (*pack_huffman_tables(tables),
+            not any(t.saturated for t in tables))
+
+
+def _decode_symbol_table(cfg: ScanConfig, t: _Plain, symtab, data, c, z):
+    """Tensor model of the kernels' table decode (``next_symbol`` in
+    ``kernels/csrc/huffman_common.cuh``), statement by statement, for the
+    tests: the data unit's table slot for z, one lookup keyed by the next
+    SYMTAB_BITS bits, and for an escaped symbol :func:`_decode_symbol`.
+    ``symtab`` is int64. Returns (length, category, run, value), int64;
+    the category of an escaped symbol is that of :func:`_decode_symbol`,
+    recovered from its length."""
+    nb = SYMTAB_BITS
+    pair = t.slots.index_select(0, c)
+    tbl = torch.where(z == 0, pair[:, 0], pair[:, 1])
+    f = symtab[(tbl << nb) + (data >> (32 - nb))] & 0xFFFF
+    length = f & 31
+    cat = (f >> 5) & 31
+    run = torch.where((f & SYMTAB_EOB) != 0, 63 - z,
+                      (f >> SYMTAB_RUN_SHIFT) & 15)
+    value = _extend(data, length - cat, cat)
+    esc = (f & SYMTAB_ESC) != 0
+    e_len, e_val, e_run = _decode_symbol(cfg, t, data, c, z)
+    e_cat = e_len - _code(cfg.fast_tables, t, data, tbl)[0]
+    return (torch.where(esc, e_len, length), torch.where(esc, e_cat, cat),
+            torch.where(esc, e_run, run), torch.where(esc, e_val, value))
 
 
 def _symbol_step(cfg: ScanConfig, t: _Plain, p, c, z, active,
@@ -300,7 +458,7 @@ def _symbol_step(cfg: ScanConfig, t: _Plain, p, c, z, active,
     return p, c, z, sym, run, commit
 
 
-# --- K1: one decode pass over every lane's own subsequence ------------------
+# --- K1: one sync round over every lane's own subsequence -------------------
 
 def _check_lane_tensors(where: str, dev: torch.device, lanes: int, **tensors):
     for name, (t, dtype) in tensors.items():
@@ -321,9 +479,34 @@ def _table_ptrs(arrs: ScanArrays, ctx: Ctx, dev: torch.device):
     return [t.data_ptr() for t in tabs]
 
 
-def subseq_pass_plain(cfg, arrs, ctx, p0, c0, z0, active0):
-    """Plain version of :func:`subseq_pass`: all lanes in lock step, one
-    symbol per iteration, on whatever device holds the tensors."""
+def _symtab_ptrs(where: str, cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx,
+                 dev: torch.device):
+    """The symbol table and the packed tables of the escape path, as K1
+    and K2 take them."""
+    check_slot_classes(cfg, where)
+    _check_lane_tensors(where, dev, 8 << SYMTAB_BITS,
+                        symtab=(arrs.symtab, torch.int16))
+    return [arrs.symtab.data_ptr()] + _table_ptrs(arrs, ctx, dev)[:4]
+
+
+def slot_pairs(cfg: ScanConfig) -> int:
+    """The (DC, AC) table slots of the MCU's data units packed for K1 and
+    K2, 6 bits a data unit (DC in the low 3), from the static geometry: a
+    kernel argument, so that no block waits on a load before it copies its
+    tables."""
+    pairs, start = 0, 0
+    for end, dc, ac in cfg.comp_groups:
+        for i in range(start, end):
+            pairs |= (dc | ac << 3) << (6 * i)
+        start = end
+    return pairs
+
+
+def decode_pass_plain(cfg, arrs, ctx, p0, c0, z0, active0):
+    """One decode pass, all lanes in lock step, one symbol per iteration:
+    each active lane decodes its own subsequence from (p0, c0, z0) until
+    its next symbol would cross its subsequence end. Returns int32 (p, c,
+    z, n); n counts coefficient positions (run + 1 per symbol)."""
     t = _plain_operands(arrs, ctx)
     p, c, z = p0.to(torch.int64), c0.to(torch.int64), z0.to(torch.int64)
     n = torch.zeros_like(p)
@@ -336,40 +519,103 @@ def subseq_pass_plain(cfg, arrs, ctx, p0, c0, z0, active0):
     return tuple(x.to(torch.int32) for x in (p, c, z, n))
 
 
-def subseq_pass(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p0, c0, z0,
-                active0):
-    """Decode each lane's own subsequence from the given start state, until
-    the lane's next symbol would cross its subsequence end. Writes nothing.
-    Returns int32 (p, c, z, n).
+def subseq_pass_plain(cfg, arrs, ctx, p, c, z, valid, *, entry=None,
+                      flag=None):
+    """Plain version of :func:`subseq_pass`, the whole round: the start
+    states (segment firsts blind, lane 0 from ``entry``, every other lane
+    from its predecessor's state by ``torch.roll``), :func:`decode_pass_plain`,
+    the freeze of the lanes that are not ``valid`` and the convergence
+    test, on whatever device holds the tensors."""
+    blind_p = ctx.rel * C.SUBSEQ_SIZE_BITS
+    zeros = torch.zeros_like(blind_p)
+    first = ctx.first_of_seg
+    if p is None:
+        starts = (blind_p, zeros, zeros)
+    else:
+        # start of lane i = end state of lane i-1; segment firsts are exact
+        starts = _enter(ctx, (torch.where(first, blind_p, torch.roll(p, 1)),
+                              torch.where(first, zeros, torch.roll(c, 1)),
+                              torch.where(first, zeros, torch.roll(z, 1))),
+                        entry)
+    p2, c2, z2, n2 = decode_pass_plain(cfg, arrs, ctx, *starts, valid)
+    # padded lanes stay frozen so they never delay convergence
+    p2 = torch.where(valid, p2, blind_p)
+    c2 = torch.where(valid, c2, zeros)
+    z2 = torch.where(valid, z2, zeros)
+    n2 = torch.where(valid, n2, zeros)
+    if flag is not None:
+        # lanes whose start state comes from a predecessor (torch.roll
+        # wraps the last lane into lane 0, which is a segment first or
+        # takes the fixed `entry`: it never re-enters)
+        frontier_ok = ~first & valid
+        if entry is not None:
+            frontier_ok = frontier_ok & (
+                torch.arange(cfg.lanes, device=valid.device) > 0)
+        delta = (p2 != p) | (c2 != c) | (z2 != z)
+        flag |= (torch.roll(delta, 1) & frontier_ok).any().to(flag.dtype)
+    return p2, c2, z2, n2
+
+
+def subseq_pass(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z, valid,
+                *, entry=None, flag=None):
+    """One round of :func:`sync_states`. Lane i starts blind at
+    ``(rel * 1024, 0, 0)`` where ``p`` is None (the blind round) or it is
+    the first of its segment; lane 0 starts from ``entry`` (an int32[3]
+    tensor, or a ``(p, c, z)`` triple) where that is given and lane 0 is
+    not a segment first; every other lane starts from lane i-1's state in
+    ``(p, c, z)``, the previous round's. Each ``valid`` lane then decodes
+    its own subsequence until its next symbol would cross the subsequence
+    end; the other lanes are frozen at ``(rel * 1024, 0, 0, 0)``. Where
+    ``flag`` (int32[1]) is given, it is raised (set to 1, never cleared)
+    if a lane whose start state comes from its predecessor has a
+    predecessor whose state changed, ``torch.roll(delta, 1) & frontier_ok``
+    as a whole. Returns int32 (p, c, z, n), n the coefficient positions
+    (run + 1 per symbol) the lane produced.
 
     CUDA tensors: kernel K1 (``kernels/csrc/subseq_pass.cu``; replaces the
     Pallas kernel behind ``jpeggpu_tpu/ops/huffman_pallas.py:
-    subseq_pass``). Bound by the dependent instructions per symbol of the
-    slowest lane, not by bytes; see the note in the source. CPU tensors:
-    the plain version.
+    subseq_pass``), the whole round in one launch. Bound by the dependent
+    instructions per symbol of the slowest lane, not by bytes; see the
+    note in the source. CPU tensors: the plain version.
     """
-    dev = p0.device
+    dev = (valid if p is None else p).device
     if dev.type == "cpu":
-        return subseq_pass_plain(cfg, arrs, ctx, p0, c0, z0, active0)
+        return subseq_pass_plain(cfg, arrs, ctx, p, c, z, valid, entry=entry,
+                                 flag=flag)
     if dev.type != "cuda":
         raise ValueError(f"subseq_pass: unsupported device {dev}")
     lanes = cfg.lanes
     i32 = torch.int32
-    _check_lane_tensors(
-        "subseq_pass", dev, lanes, p0=(p0, i32), c0=(c0, i32), z0=(z0, i32),
-        active0=(active0, torch.bool), word_end=(ctx.word_end, i32),
-        seg_base_bits=(ctx.seg_base_bits, i32),
-        end_subseq=(ctx.end_subseq, i32))
+    lane_in = dict(valid=(valid, torch.bool), word_end=(ctx.word_end, i32),
+                   seg_base_bits=(ctx.seg_base_bits, i32),
+                   end_subseq=(ctx.end_subseq, i32), rel=(ctx.rel, i32))
+    if p is not None:
+        lane_in.update(p=(p, i32), c=(c, i32), z=(z, i32))
+    _check_lane_tensors("subseq_pass", dev, lanes, **lane_in)
     _check_lane_tensors("subseq_pass", dev, lanes * C.CHUNK_SIZE_WORDS,
                         words=(arrs.words, i32))
+    entry = _entry_tensor(entry, dev)
+    if entry is not None:
+        _check_lane_tensors("subseq_pass", dev, 3, entry=(entry, i32))
+    if flag is not None:
+        if p is None:
+            raise ValueError("subseq_pass: the blind round has no "
+                             "convergence flag")
+        _check_lane_tensors("subseq_pass", dev, 1, flag=(flag, i32))
     out = torch.empty((4, lanes), dtype=i32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     fn = kernels.get("jpeggpu_subseq_pass")
     err = fn(arrs.words.data_ptr(), ctx.word_end.data_ptr(),
              ctx.seg_base_bits.data_ptr(), ctx.end_subseq.data_ptr(),
-             *_table_ptrs(arrs, ctx, dev),
-             p0.data_ptr(), c0.data_ptr(), z0.data_ptr(), active0.data_ptr(),
+             ctx.rel.data_ptr(), valid.data_ptr(),
+             *_symtab_ptrs("subseq_pass", cfg, arrs, ctx, dev),
+             ptr(p), ptr(c), ptr(z), ptr(entry),
              out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-             out[3].data_ptr(), lanes, cfg.du_per_mcu, int(cfg.fast_tables),
+             out[3].data_ptr(), ptr(flag), slot_pairs(cfg), lanes,
+             cfg.du_per_mcu, int(cfg.fast_tables),
              torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "subseq_pass")
     subseq_pass.launches += 1
@@ -377,6 +623,17 @@ def subseq_pass(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p0, c0, z0,
 
 
 subseq_pass.launches = 0
+
+
+def _entry_tensor(entry, dev: torch.device):
+    """A boundary state ``(p, c, z)`` (ints or 0-d tensors, or an int32[3]
+    tensor) as a contiguous int32[3] tensor on ``dev``; None stays None."""
+    if entry is None or isinstance(entry, torch.Tensor):
+        return (None if entry is None
+                else entry.to(device=dev, dtype=torch.int32).reshape(3)
+                .contiguous())
+    return torch.stack([torch.as_tensor(v, dtype=torch.int32, device=dev)
+                        for v in entry])
 
 
 def _enter(ctx: Ctx, starts, entry):
@@ -399,8 +656,9 @@ def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, entry=None):
     Round 0 decodes every subsequence speculatively ("blind"); round 1
     re-decodes every subsequence from its predecessor's end state (almost
     all lanes self-synchronise here); further full-width rounds run until
-    no lane's predecessor changed. Every round is one :func:`subseq_pass`;
-    the convergence test costs one host read per round.
+    no lane's predecessor changed. Every round is one :func:`subseq_pass`,
+    which raises that round's own convergence flag; reading it back is the
+    round's one host read. The flags are zeroed once, before the rounds.
 
     ``entry``, if given, is a ``(p, c, z)`` triple used as lane 0's
     predecessor state when lane 0 is not a segment first: the boundary
@@ -410,35 +668,14 @@ def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, entry=None):
     Returns converged int32 (p, c, z, n) per subsequence: the state *after*
     decoding subsequence i, with n its coefficient-position count.
     """
-    lanes = cfg.lanes
-    blind_p = ctx.rel * C.SUBSEQ_SIZE_BITS
-    zeros = torch.zeros_like(blind_p)
-    first = ctx.first_of_seg
     valid = ctx.lane_valid
-    # lanes whose start state comes from a predecessor (torch.roll wraps
-    # the last lane into lane 0, which is a segment first or takes the
-    # fixed `entry`: it never re-enters)
-    frontier_ok = ~first & valid
-    if entry is not None:
-        frontier_ok = frontier_ok & (
-            torch.arange(lanes, device=valid.device) > 0)
-
-    p, c, z, n = subseq_pass(cfg, arrs, ctx, blind_p, zeros, zeros, valid)
-    for _ in range(lanes + 1):
-        # start of lane i = end state of lane i-1; segment firsts are exact
-        sp = torch.where(first, blind_p, torch.roll(p, 1))
-        sc = torch.where(first, zeros, torch.roll(c, 1))
-        sz = torch.where(first, zeros, torch.roll(z, 1))
-        sp, sc, sz = _enter(ctx, (sp, sc, sz), entry)
-        p2, c2, z2, n2 = subseq_pass(cfg, arrs, ctx, sp, sc, sz, valid)
-        # padded lanes stay frozen so they never delay convergence
-        p2 = torch.where(valid, p2, blind_p)
-        c2 = torch.where(valid, c2, zeros)
-        z2 = torch.where(valid, z2, zeros)
-        n2 = torch.where(valid, n2, zeros)
-        delta = (p2 != p) | (c2 != c) | (z2 != z)
-        p, c, z, n = p2, c2, z2, n2
-        if not bool((torch.roll(delta, 1) & frontier_ok).any()):
+    entry = _entry_tensor(entry, valid.device)
+    flags = torch.zeros(cfg.lanes + 1, dtype=torch.int32, device=valid.device)
+    p, c, z, n = subseq_pass(cfg, arrs, ctx, None, None, None, valid)
+    for r in range(cfg.lanes + 1):
+        p, c, z, n = subseq_pass(cfg, arrs, ctx, p, c, z, valid, entry=entry,
+                                 flag=flags[r:r + 1])
+        if not bool(flags[r]):
             break
     return p, c, z, n
 
@@ -578,10 +815,11 @@ def decode_write(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
     fn = kernels.get("jpeggpu_decode_write")
     err = fn(arrs.words.data_ptr(), ctx.word_end.data_ptr(),
              ctx.seg_base_bits.data_ptr(), ctx.end_subseq.data_ptr(),
-             *_table_ptrs(arrs, ctx, dev), ctx.natural.data_ptr(),
+             *_symtab_ptrs("decode_write", cfg, arrs, ctx, dev),
+             ctx.natural.data_ptr(),
              sp.data_ptr(), sc.data_ptr(), sz.data_ptr(), pos0.data_ptr(),
-             bound.data_ptr(), active0.data_ptr(), out.data_ptr(), lanes,
-             cfg.du_per_mcu, int(cfg.fast_tables),
+             bound.data_ptr(), active0.data_ptr(), out.data_ptr(),
+             slot_pairs(cfg), lanes, cfg.du_per_mcu, int(cfg.fast_tables),
              torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "decode_write")
     decode_write.launches += 1

@@ -50,8 +50,9 @@ from ..ops.huffman import (ScanConfig, decode_scan, decode_scan_from_states,
 from ..ops.idct import dequant_idct_plane
 from ..ops.transpose import deinterleave
 from ..pipeline import (DecodePlan, ScanPlanStatic, _bucket, _destuff_host,
-                        build_plan, pack_huff_tables)
+                        build_plan)
 from ..reader import num_mcus_in_segment, parse
+from ..tables import pack_huffman_tables
 from . import Mesh, make_mesh
 from .collectives import all_gather, ppermute, psum, psum_scatter
 
@@ -171,7 +172,7 @@ def build_shard_inputs(data: bytes, plan: DecodePlan,
         pos_base[d, :n_sub] = base
         pos_bound[d, :n_sub] = np.clip(bnd, 0, shp.shard_positions)
 
-    maxcode, vsm, huffval = pack_huff_tables(scan)
+    maxcode, vsm, huffval = pack_huffman_tables(scan.huff_tables)
     return dict(words=words, seg_of=seg_of, seg_first=seg_first,
                 seg_nsub=seg_nsub, pos_base=pos_base, pos_bound=pos_bound,
                 n_subseq=n_subseq,
@@ -256,7 +257,7 @@ def build_subseq_shard_inputs(data: bytes, plan: DecodePlan,
             seg_first[d, nd:] = seg_first[d, nd - 1]
             seg_nsub[d, nd:] = seg_nsub[d, nd - 1]
 
-    maxcode, vsm, huffval = pack_huff_tables(scan)
+    maxcode, vsm, huffval = pack_huffman_tables(scan.huff_tables)
     return dict(words=words, seg_of=seg_local, seg_first=seg_first,
                 seg_nsub=seg_nsub, seg_global=seg_global,
                 prev_word=prev_word, n_subseq=n_subseq,
@@ -310,7 +311,8 @@ def _stage(data: bytes, plan: DecodePlan, si: int, mesh: Mesh,
     qtables = plan.stream.qtables.astype(np.int32)
     shards = []
     for d, dev in enumerate(mesh.devices):
-        shard = dict(arrs=convert.shard_arrays(inputs, d, dev),
+        shard = dict(arrs=convert.shard_arrays(inputs, d, dev,
+                                               shp.cfg.fast_tables),
                      n_subseq=int(inputs["n_subseq"][d, 0]),
                      qtables=torch.from_numpy(qtables).to(dev))
         for k in lane_inputs:

@@ -31,10 +31,12 @@ from . import convert
 from .config import Tuning, default_tuning
 from .errors import OutOfHostMemory
 from .ops.dc import undelta_dc_values
-from .ops.huffman import ScanArrays, ScanConfig, _emit_cap, decode_scan
+from .ops.huffman import (SYMTAB_BITS, ScanArrays, ScanConfig, _emit_cap,
+                          decode_scan)
 from .ops.idct import idct_stream_to_plane
 from .ops.write import resolve_tile_mode
 from .reader import JpegStream, Scan, num_mcus_in_segment, parse
+from .tables import pack_huffman_tables
 
 
 def resolve_device(device) -> torch.device:
@@ -167,17 +169,6 @@ def build_plan(stream: JpegStream,
 
 # --- host -> device staging -------------------------------------------------
 
-def pack_huff_tables(scan: Scan) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    maxcode = np.full((C.MAX_HUFF_PER_SCAN, 16), -1, np.int32)
-    vsm = np.zeros((C.MAX_HUFF_PER_SCAN, 16), np.int32)
-    huffval = np.zeros((C.MAX_HUFF_PER_SCAN, 256), np.int32)
-    for i, t in enumerate(scan.huff_tables):
-        maxcode[i] = t.maxcode
-        vsm[i] = t.valptr_sub_mincode
-        huffval[i] = t.huffval
-    return maxcode, vsm, huffval.reshape(-1)
-
-
 def _destuff_host(buf: np.ndarray, scan: Scan, lanes: int) -> np.ndarray:
     """Host destuff -> big-endian uint32 words, padded to `lanes`
     subsequences: the native C++ destuffer where the machine has a
@@ -213,7 +204,7 @@ def build_scan_inputs(buf: np.ndarray, scan: Scan,
     if len(seg_of) < lanes and scan.num_segments:
         seg_first_lane[len(seg_of):] = scan.segments[-1, 0]
         seg_num_subseq[len(seg_of):] = scan.segments[-1, 1]
-    maxcode, vsm, huffval = pack_huff_tables(scan)
+    maxcode, vsm, huffval = pack_huffman_tables(scan.huff_tables)
     return dict(
         words=_destuff_host(buf, scan, lanes),
         seg_of_subseq=seg_of_subseq,
@@ -237,10 +228,12 @@ def build_inputs(data: bytes | np.ndarray, plan: DecodePlan) -> Dict:
     return dict(scans=scans, qtables=plan.stream.qtables.astype(np.int32))
 
 
-def stage_inputs(inputs: Dict, device: torch.device) -> Dict:
-    """Copy the host inputs of :func:`build_inputs` to ``device``."""
+def stage_inputs(inputs: Dict, plan: DecodePlan, device: torch.device) -> Dict:
+    """Copy the host inputs of :func:`build_inputs` to ``device``, with each
+    scan's symbol table under its plan's ``fast_tables``."""
     return dict(
-        scans=[convert.scan_arrays(s, device) for s in inputs["scans"]],
+        scans=[convert.scan_arrays(s, device, sp.cfg.fast_tables)
+               for s, sp in zip(inputs["scans"], plan.signature.scans)],
         qtables=torch.from_numpy(inputs["qtables"]).to(device),
     )
 
@@ -255,10 +248,11 @@ def plan_buffer_size(plan: DecodePlan) -> int:
     for sp in plan.signature.scans:
         cfg = sp.cfg
         lane_i32 = 4 * cfg.lanes
-        tables = 4 * (2 * 128 + 2048 + 128 + 2 * cfg.du_per_mcu + 64)
+        tables = (4 * (2 * 128 + 2048 + 128 + 2 * cfg.du_per_mcu + 64)
+                  + 2 * (8 << SYMTAB_BITS))
         staged = (C.CHUNK_SIZE_WORDS + 3) * lane_i32
         ctx = 4 * lane_i32 + 2 * cfg.lanes
-        sync = (4 + 4 + 3) * lane_i32
+        sync = (4 + 4 + 3) * lane_i32 + 4 * (cfg.lanes + 1)  # + the flags
         write = 3 * lane_i32 + cfg.lanes
         total_du = cfg.total_mcus * cfg.du_per_mcu
         coeffs = 2 * cfg.total_positions + 2 * total_du
@@ -318,6 +312,6 @@ def decode_jpeg_device(data: bytes, *, device=None,
     dev = resolve_device(device)
     if plan is None:
         plan = build_plan(parse(data))
-    staged = stage_inputs(build_inputs(data, plan), dev)
+    staged = stage_inputs(build_inputs(data, plan), plan, dev)
     out = decode_pipeline(plan.signature, staged["scans"], staged["qtables"])
     return [p.contiguous().cpu().numpy() for p in out]

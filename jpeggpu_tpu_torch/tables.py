@@ -20,7 +20,7 @@ import dataclasses
 
 import numpy as np
 
-from .constants import HUFFMAN_ALPHABET_SIZE
+from .constants import HUFFMAN_ALPHABET_SIZE, MAX_HUFF_PER_SCAN
 from .errors import InvalidJpeg
 
 LOOKUP_BITS = 8
@@ -116,6 +116,20 @@ def build_huffman_table(num_codes: np.ndarray, values: np.ndarray) -> HuffmanTab
                 table.saturated = True
         code <<= 1
     return table
+
+
+def pack_huffman_tables(tables) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A scan's Huffman tables, slot by slot, as the device takes them:
+    int32 ``maxcode[8, 16]`` (-1 where a slot is empty), ``vsm[8, 16]``
+    (``valptr_sub_mincode``) and ``huffval[8 * 256]``."""
+    maxcode = np.full((MAX_HUFF_PER_SCAN, 16), -1, np.int32)
+    vsm = np.zeros((MAX_HUFF_PER_SCAN, 16), np.int32)
+    huffval = np.zeros((MAX_HUFF_PER_SCAN, 256), np.int32)
+    for i, t in enumerate(tables):
+        maxcode[i] = t.maxcode
+        vsm[i] = t.valptr_sub_mincode
+        huffval[i] = t.huffval
+    return maxcode, vsm, huffval.reshape(-1)
 
 
 def decode_category_scalar(table: HuffmanTable, bits32: int) -> tuple[int, int]:

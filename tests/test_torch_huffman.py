@@ -25,49 +25,11 @@ from jpeggpu_tpu_torch.encoder import EncodeSpec, encode
 from jpeggpu_tpu_torch.ops import dc as tdc
 from jpeggpu_tpu_torch.ops import huffman as TH
 
-_S420 = [(2, 2), (1, 1), (1, 1)]
+import torch_cases
 
-
-def _saturated():
-    counts1 = np.zeros(16, np.uint8)
-    counts1[0] = 2  # two 1-bit codes: the code space saturates at length 1
-    overrides = {
-        (0, 0): (counts1, np.array([0, 1], np.uint8)),
-        (1, 0): (counts1, np.array([0x00, 0x11], np.uint8)),
-    }
-    img = np.full((24, 32), 127, np.uint8)
-    return encode(img, EncodeSpec(huff_overrides=overrides, quality=50))
-
-
-def _case_data(name, image):
-    small = image[:24, :40]
-    four = [small[..., 0], small[..., 1], small[..., 2], 255 - small[..., 0]]
-    makers = {
-        "420_rst2": lambda: encode(small, EncodeSpec(
-            sampling=_S420, restart_interval=2)),
-        "420_rst7": lambda: encode(small, EncodeSpec(
-            sampling=_S420, restart_interval=7)),
-        "444": lambda: encode(small, EncodeSpec(sampling=[(1, 1)] * 3)),
-        "422": lambda: encode(small, EncodeSpec(
-            sampling=[(2, 1), (1, 1), (1, 1)])),
-        "gray": lambda: encode(small[..., 0]),
-        "non_interleaved": lambda: encode(small, EncodeSpec(
-            sampling=_S420, interleaved=False)),
-        "four_component": lambda: encode(four, EncodeSpec(
-            sampling=[(1, 1)] * 4)),
-        "tiny": lambda: encode(np.full((1, 1), 128, np.uint8)),
-        "saturated_table": _saturated,
-        "flat": lambda: encode(np.full((64, 96, 3), 200, np.uint8),
-                               EncodeSpec(sampling=_S420)),
-        "per_scan_dht": lambda: encode(small, EncodeSpec(
-            sampling=[(1, 1)] * 3, interleaved=False,
-            table_ids=[(0, 0)] * 3, dht_per_scan=True)),
-    }
-    return makers[name]()
-
-
-CASES = ["420_rst2", "420_rst7", "444", "422", "gray", "non_interleaved",
-         "four_component", "tiny", "saturated_table", "flat", "per_scan_dht"]
+_S420 = torch_cases.S420
+_case_data = torch_cases.case_data
+CASES = torch_cases.CASES
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +43,7 @@ def decoded(test_image):
         data = _case_data(name, test_image)
         plan = pipeline.build_plan(T.parse(data))
         staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan),
-                                       torch.device("cpu"))
+                                       plan, torch.device("cpu"))
         scans = []
         for sp, arrs in zip(plan.signature.scans, staged["scans"]):
             cfg = sp.cfg
@@ -208,7 +170,7 @@ def test_records_path_matches_golden(decoded, test_image, name):
     else:
         data = decoded(name)["data"]
     plan = pipeline.build_plan(T.parse(data), tuning=tuning)
-    staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan),
+    staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan), plan,
                                    torch.device("cpu"))
     fused_plan = pipeline.build_plan(T.parse(data))
     for sp, fsp, arrs in zip(plan.signature.scans, fused_plan.signature.scans,

@@ -274,7 +274,7 @@ def test_wrappers_refuse_other_devices(data_420_rst2):
 
     plan = pipeline.build_plan(T.parse(data_420_rst2))
     staged = pipeline.stage_inputs(
-        pipeline.build_inputs(data_420_rst2, plan), torch.device("cpu"))
+        pipeline.build_inputs(data_420_rst2, plan), plan, torch.device("cpu"))
     cfg = plan.signature.scans[0].cfg
     arrs = staged["scans"][0]
     ctx = TH.make_ctx(cfg, arrs)

@@ -254,7 +254,7 @@ def test_segment_shard_matches_reference(streams):
     plan, jplan = _plans(data)
     shp, jshp = S.plan_shards(plan, D), JS.plan_shards(jplan, D)
     inputs = JS.build_shard_inputs(data, jplan, jshp)
-    arrs = convert.shard_arrays(inputs, d, "cpu")
+    arrs = convert.shard_arrays(inputs, d, "cpu", shp.cfg.fast_tables)
     nsub = int(inputs["n_subseq"][d, 0])
     pos_base = torch.from_numpy(inputs["pos_base"][d])
     bound = torch.from_numpy(inputs["pos_bound"][d])
@@ -282,7 +282,7 @@ def _subseq_shard(data, D, d, tuning=None):
     plan = pipeline.build_plan(T.parse(data), tuning=tuning)
     shp = S.plan_subseq_shards(plan, D)
     inputs = S.build_subseq_shard_inputs(data, plan, shp)
-    arrs = convert.shard_arrays(inputs, d, "cpu")
+    arrs = convert.shard_arrays(inputs, d, "cpu", shp.cfg.fast_tables)
     nsub = int(inputs["n_subseq"][d, 0])
     ctx = TH.make_ctx(shp.cfg, arrs, num_subseq=nsub)
     gs = _golden_states(data)

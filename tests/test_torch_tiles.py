@@ -43,7 +43,7 @@ def _port_stage(data, tuning=_LANE):
     plan = pipeline.build_plan(T.parse(data), tuning=tuning)
     inputs = pipeline.build_inputs(data, plan)
     cfg = plan.signature.scans[0].cfg
-    arrs = convert.scan_arrays(inputs["scans"][0], "cpu")
+    arrs = convert.scan_arrays(inputs["scans"][0], "cpu", cfg.fast_tables)
     ctx = TH.make_ctx(cfg, arrs)
     p, c, z, n = TH.sync_states(cfg, arrs, ctx)
     n_off = TH.symbol_offsets(cfg, arrs, n)

@@ -47,7 +47,7 @@ def port_stage(test_image):
     inputs = pipeline.build_inputs(data, plan)
     sp = plan.signature.scans[0]
     cfg = sp.cfg
-    arrs = convert.scan_arrays(inputs["scans"][0], "cpu")
+    arrs = convert.scan_arrays(inputs["scans"][0], "cpu", cfg.fast_tables)
     ctx = TH.make_ctx(cfg, arrs)
     p, c, z, n = TH.sync_states(cfg, arrs, ctx)
     n_off = TH.symbol_offsets(cfg, arrs, n)
