@@ -11,7 +11,9 @@ line) on the first phase that fails; nothing is caught and carried past:
    the native host destuffer (the run fails where that one is missing, so
    that every host time below is the native destuffer's);
 3. small streams made with the port's encoder from a numpy seed (4:2:0 with
-   restarts, 4:4:4, gray, non-interleaved, a saturated Huffman table):
+   restarts, 4:4:4, gray, non-interleaved, a saturated Huffman table,
+   random noise, and three with frequency-optimal Huffman tables, not those
+   of Annex K: `opt_huff`, `opt_huff_rst`, `opt_huff_q99`):
    decode on the card == the port's numpy golden decoder, exactly, on the
    default path and again under a plan built with
    `Tuning(write_mode="tiles", tile_mode="super")` (the records write
@@ -19,11 +21,12 @@ line) on the first phase that fails; nothing is caught and carried past:
    there also a flat low-entropy image, whose lanes drain through the
    leftover scatter, and a garbage scan body; K7 and K8 are also held
    against their plain versions on made-up inputs that no decoder emits
-   (sums that wrap, first data units out of range, windows that leave the
-   lanes), and so are K1 and K2 (random words, random states and entry
-   states, saturated tables, garbage DC categories and codes of up to 16
-   bits, whose symbols escape the one-lookup symbol table or take the
-   reader's seek; K1's flags and the whole sync loop included);
+   (sums that wrap, first data units out of range and unsorted, windows
+   that leave the lanes; K8 with and without `reach`), and so are K1, K2
+   and K4 (random words, random states and entry states, saturated tables,
+   garbage DC categories and codes of up to 16 bits, whose symbols escape
+   the one-lookup symbol table or take the reader's seek; K1's flags and
+   the whole sync loop included);
 4. a 4032x3024 (12 MP) interleaved 4:2:0 JPEG, restart interval 252,
    quality 90, made from a seed: a strip of MCU rows is encoded with the
    numpy encoder and its restart segments are repeated to 189 rows. At
@@ -45,7 +48,9 @@ line) on the first phase that fails; nothing is caught and carried past:
 5b. the sparse 12 MP image: the same generator and seed at quality 30,
    where `tile_mode="auto"` must resolve to the per-lane shape. At its
    shapes K7 (from the preparation of K4's records) and K8 (from K7's
-   tiles) are held against their plain versions (exact). Then the third
+   tiles, with the `reach` that the path passes and at the full tile
+   depth: the same rows) are held against their plain versions (exact),
+   and K8's bound is given both ways. Then the third
    main path, `decode_jpeg_device(data, plan=build_plan(parse(data),
    tuning=Tuning(write_mode="tiles")))` on this image, counted as above:
    it must launch K1, K4, K7, K8 and K3 and none of K2, K5, K6, and equal
@@ -60,7 +65,8 @@ line) on the first phase that fails; nothing is caught and carried past:
    were last touched tens of MB earlier, and the warm time for K1, whose
    rounds follow each other over the same 2.6 MB of words; both times are
    in the line. The kernels' times inside a real decode (the profiler's)
-   are printed beside them, and K1's and K2's cycles per symbol of the
+   are printed beside them (and kept in the `kernels` line for K1, K2 and
+   the records path's K4-K8), and K1's and K2's cycles per symbol of the
    longest lane (in-decode time x `clocks.sm` from nvidia-smi, read while
    the card decodes, / the longest lane's symbols). The profiler's window
    of one `sync_states` must show one K1 launch per round and, besides the
@@ -110,13 +116,13 @@ INT_OPS_PER_S = 67e12 / 2
 # index 5, the load and the half 3, escape test 2, length, run and EOB 6,
 # crossing test and state update 9, buffer shift and refill (amortised) 8;
 # the write adds the category and EXTEND 12, the store address and bound
-# 10. K4 (emit_pass.cu, decode_symbol in huffman_common.cuh): peek 1,
-# table pick 3, limit search 8, code/index 4, huffval 2, run/category 8,
-# length and crossing test 3, state update 8, buffer shift and refill 8,
-# EXTEND 10, the record 5
+# 10. K4 (emit_pass.cu, the same next_symbol): K1's 33, the category and
+# EXTEND 12, the record 11 (the value gated by the bound 2, the pack 4, the
+# store and the 64-bit step to the next slot 3, the slot count and its cap
+# 2)
 K1_OPS_PER_SYMBOL = 33
 K2_OPS_PER_SYMBOL = 55
-K4_OPS_PER_SYMBOL = 60
+K4_OPS_PER_SYMBOL = 56
 # per pixel, from kernels/csrc/idct_stream.cu: two 8-point passes of 62
 # operations per 8 values, dequantise and wrap 3, level shift, clamp and
 # pack 6
@@ -128,11 +134,15 @@ K3_OPS_PER_PIXEL = 25
 K5_OPS_PER_RECORD, K5_OPS_PER_CELL = 10, 2
 K6_OPS_PER_CELL = 4
 # K7, from kernels/csrc/tiles.cu: K5's counts. K8, from
-# kernels/csrc/expand_tiles.cu: per output cell one add per matching tile
-# row and the pack, and per thread (8 cells) a subtract and two compares for
-# each of the 64 candidate lanes
+# kernels/csrc/expand_tiles.cu: per output row and candidate lane one test
+# by one of the row's threads, 11 (the window's shared load, two compares
+# and their and, the vote, its byte shifted and masked, widened and or-ed
+# into the 64-bit mask 4); per tile row read and cell 4 (per thread and hit
+# 30 over its 8 cells: the mask's test, lowest bit and its clearing 6, the
+# row address 5, the load, four pairs unpacked and added 16, rounded up);
+# per output cell the pack and the store 2
 K7_OPS_PER_RECORD, K7_OPS_PER_CELL = 10, 2
-K8_OPS_PER_CELL, K8_OPS_PER_CANDIDATE = 4, 3
+K8_OPS_PER_CANDIDATE, K8_OPS_PER_HIT_CELL, K8_OPS_PER_CELL = 11, 4, 2
 # K9, from kernels/csrc/idct_blocks.cu: K3's arithmetic without the DC splice
 K9_OPS_PER_PIXEL = K3_OPS_PER_PIXEL
 
@@ -209,6 +219,14 @@ def small_streams(seed: int):
         ("saturated_table", encode(np.full((24, 32), 127, np.uint8), EncodeSpec(
             huff_overrides=saturated, quality=50))),
         ("noise_q98", encode(noise, EncodeSpec(quality=98))),
+        # frequency-optimal tables, not those of Annex K: the symbol table
+        # of K1, K2 and K4 meets them in a real stream
+        ("opt_huff", encode(img, EncodeSpec(sampling=S420,
+                                            optimize_huffman=True))),
+        ("opt_huff_rst", encode(img, EncodeSpec(
+            sampling=S420, optimize_huffman=True, restart_interval=3))),
+        ("opt_huff_q99", encode(img, EncodeSpec(quality=99,
+                                                optimize_huffman=True))),
     ]
 
 
@@ -390,7 +408,8 @@ def phase_small_streams(dev: torch.device, seed: int) -> None:
     check_equal_numpy(name, decode_tiles(data, dev, wide), golden.decode(data))
     log(f"small stream {name} with super_d=512, super_g=2, super_w=3, "
         f"group_du=128: == golden, {W.scatter_leftover.lanes} leftover lane(s)")
-    name, data = streams[-1]
+    name = "noise_q98"
+    data = dict(streams)[name]
     trimmed = T.Tuning(write_mode="tiles", tile_mode="super", s_trim=128)
     check_equal_numpy(name, decode_tiles(data, dev, trimmed),
                       golden.decode(data))
@@ -404,7 +423,9 @@ def phase_lane_kernels_any_input(dev: torch.device, seed: int) -> None:
     """K7 and K8 against their plain versions on made-up inputs that no
     decoder emits: several records on one cell (sums that wrap), inert
     slots, excluded lanes, rows outside the tile, first data units that are
-    negative or huge, windows that leave the lanes."""
+    negative or huge and not sorted, windows that leave the lanes; K8 with
+    and without `reach`, which here falls anywhere: before the lane's first
+    data unit, inside its tile, past it, -1, INT_MIN and INT_MAX."""
     rng = np.random.default_rng(seed)
     lanes, s_cap = 256, 96
     i32 = np.iinfo(np.int32)
@@ -426,14 +447,21 @@ def phase_lane_kernels_any_input(dev: torch.device, seed: int) -> None:
         q = rng.integers(-3, lanes // 32 + 2, n_groups).astype(np.int32)
         stuffed = torch.from_numpy(rng.integers(
             -32768, 32768, tuple(tiles.shape)).astype(np.int16)).to(dev)
+        reach = (du0.astype(np.int64) + rng.integers(
+            -40, tile_d + 40, lanes)).clip(i32.min, i32.max)
+        reach[rng.random(lanes) < 0.1] = -1
+        reach[[5, 9, 100, 150]] = [-1, i32.min, i32.max, -(1 << 30)]
+        reach_t = torch.from_numpy(reach.astype(np.int32)).to(dev)
         err8 = 0
         for t in (tiles, stuffed):
             kargs = (t, args[3], torch.from_numpy(q).to(dev), n_groups)
-            err8 = max(err8, max_abs_err(W.expand_tiles(*kargs),
-                                         W.expand_tiles_plain(*kargs)))
+            for r in (None, reach_t):
+                err8 = max(err8, max_abs_err(W.expand_tiles(*kargs, r),
+                                             W.expand_tiles_plain(*kargs, r)))
         sync(dev)
         log(f"K7 / K8 on made-up inputs, tile_d {tile_d}: max_abs_err "
-            f"{err7} / {err8} against the plain versions")
+            f"{err7} / {err8} against the plain versions (K8 with and "
+            f"without reach)")
         if err7 or err8:
             raise AssertionError("K7 or K8 differs from its plain version "
                                  "on made-up inputs")
@@ -480,8 +508,24 @@ def made_up_scan(dev: torch.device, seed: int, kind: str, shard: bool):
     return cfg, arrs, ctx
 
 
+def gated_records(rec: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """K4's records with the slots at and past m[lane] set to the inert
+    record: the kernel leaves them unwritten, the plain version fills
+    them."""
+    slot = torch.arange(rec.shape[0], dtype=torch.int32,
+                        device=rec.device)[:, None]
+    return torch.where(slot < m[None, :], rec, H._REC_INERT)
+
+
+def k4_error(got, ref) -> int:
+    """max_abs_err of K4's (rec, m) against its plain version's: m, and the
+    records slot by slot up to m."""
+    return max(max_abs_err(got[1], ref[1]),
+               max_abs_err(gated_records(*got), ref[0]))
+
+
 def phase_entropy_kernels_any_input(dev: torch.device, seed: int) -> None:
-    """K1 and K2 against their plain versions on made-up inputs that no
+    """K1, K2 and K4 against their plain versions on made-up inputs that no
     real stream has: random words, random previous-round states (some past
     their lane's end, some anywhere in the next two subsequences), random
     data units and zig-zag indices, a random entry state, and the tables of
@@ -489,9 +533,9 @@ def phase_entropy_kernels_any_input(dev: torch.device, seed: int) -> None:
     symbols escape the symbol table or take the reader's seek). K1: the
     blind round, two rounds from random states and one from converged
     states, states and flags; the whole sync_states against its plain
-    version on CPU copies. K2: from the random states, with the offsets of
-    the round that decoded from them (so that no two lanes write one
-    cell)."""
+    version on CPU copies. K2 and K4: from the random states, with the
+    offsets of the round that decoded from them (so that no two lanes write
+    one cell), and K4 again from the converged states."""
     rng = np.random.default_rng(seed + 5)
     cpu = torch.device("cpu")
     for kind in ("saturated", "garbage"):
@@ -547,6 +591,11 @@ def phase_entropy_kernels_any_input(dev: torch.device, seed: int) -> None:
                                        entry=entry)
             errs.append(max_abs_err(got, ref))
             written = int((got != 0).sum())
+            errs.append(k4_error(
+                H.decode_write_emit(cfg, arrs, ctx, *prev, n_off,
+                                    entry=entry),
+                H.decode_write_emit_plain(cfg, arrs, ctx, *prev, n_off,
+                                          entry=entry)))
             # the whole loop (its plain version on the same scan made on
             # the CPU), and one more round from its fixed point
             states = H.sync_states(cfg, arrs, ctx, entry=entry)
@@ -557,14 +606,20 @@ def phase_entropy_kernels_any_input(dev: torch.device, seed: int) -> None:
             errs.append(max(max_abs_err(a.cpu(), b)
                             for a, b in zip(states, ref_states)))
             _, converged = k1_round(states[:3])
+            n_off = H.symbol_offsets(cfg, arrs, states[3])
+            got = H.decode_write_emit(cfg, arrs, ctx, *states[:3], n_off,
+                                      entry=entry)
+            errs.append(k4_error(got, H.decode_write_emit_plain(
+                cfg, arrs, ctx, *states[:3], n_off, entry=entry)))
             sync(dev)
-            log(f"K1 / K2 on made-up inputs ({kind} tables, fast_tables "
+            log(f"K1 / K2 / K4 on made-up inputs ({kind} tables, fast_tables "
                 f"{cfg.fast_tables}, {'shard with entry' if shard else 'scan'}"
                 f"): max_abs_err {max(errs)} against the plain versions; "
                 f"flags {flags} from random states, {converged} from the "
-                f"fixed point; K2 wrote {written} coefficients")
+                f"fixed point; K2 wrote {written} coefficients, K4 emitted "
+                f"{int(got[1].sum())} records from the fixed point")
             if max(errs) or converged:
-                raise AssertionError("K1 or K2 differs from its plain "
+                raise AssertionError("K1, K2 or K4 differs from its plain "
                                      "version on made-up inputs")
 
 
@@ -761,20 +816,12 @@ def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
     lanes, G, super_d = tcfg.lanes, tcfg.super_g, tcfg.super_d
     entries = []
 
-    # K4: the kernel leaves the slots at and past m[lane] unwritten, the
-    # plain version fills them with the inert record: compare gated
-    def gated(pair):
-        rec, m = pair
-        slot = torch.arange(rec.shape[0], dtype=torch.int32,
-                            device=dev)[:, None]
-        return torch.where(slot < m[None, :], rec, H._REC_INERT)
-
+    # K4, compared gated (gated_records)
     (rec, m), timing = measure(
         dev, card, "K4 decode_write_emit",
         lambda: H.decode_write_emit(tcfg, arrs, ctx, *states),
         lambda: H.decode_write_emit_plain(tcfg, arrs, ctx, *states),
-        lambda got, ref: max(max_abs_err(got[1], ref[1]),
-                             max_abs_err(gated(got), ref[0])))
+        k4_error)
     records = int(m.sum())
     log(f"K4 emitted {records} records ({symbols} symbols counted from the "
         f"stream), at most {int(m.max())} in a lane, buffer {tuple(rec.shape)} "
@@ -872,6 +919,14 @@ WRAPPERS = (H.subseq_pass, H.decode_write, I.idct_stream_to_plane,
             H.decode_write_emit, W.supertiles_from_records,
             W.expand_supertiles, W.tiles_from_records, W.expand_tiles,
             I.dequant_idct_plane)
+# the records path's wrappers -> their kernels' names in a profile
+RECORDS_KERNEL_SYMBOLS = {
+    "decode_write_emit": "::emit_pass_kernel",
+    "supertiles_from_records": "::supertiles_kernel",
+    "expand_supertiles": "::expand_supertiles_kernel",
+    "tiles_from_records": "::tiles_kernel",
+    "expand_tiles": "::expand_tiles_kernel",
+}
 SUPER_KERNELS = ("supertiles_from_records", "expand_supertiles")
 LANE_KERNELS = ("tiles_from_records", "expand_tiles")
 SHARDED_KERNELS = ("dequant_idct_plane",)
@@ -905,7 +960,7 @@ def end_to_end(dev, data, card, label, one_shot, mp):
         sync(dev)
 
         def run():
-            d.decode(keep_on_device=True)
+            d.decode(device=True)
             sync(dev)
 
         held = torch.cuda.memory_allocated(dev)
@@ -1046,7 +1101,8 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
     and the DC stage, on the records path; then each path's device busy and
     idle share, the sync loop's device work, and K1's and K2's cycles per
     symbol of the longest lane. Returns {kernel: (ms in the decode, cycles
-    per symbol)} for K1 and K2."""
+    per symbol)} for K1 and K2, and the records path's per-launch times of
+    its kernels inside the decode by kernel symbol."""
     def med(fn):
         return host_ms(fn, dev)
 
@@ -1141,14 +1197,14 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
         + f"; symbols of 32 bits or more: {seeks}. A warp meets an escape of "
         f"the {H.SYMTAB_BITS}-bit table in about "
         f"{1 - (1 - longer[2] / total) ** 32:.0%} of its iterations")
-    profile_decode(
+    records_times = profile_decode(
         dev, card, "records path",
         lambda: pipeline.decode_pipeline(tplan.signature, staged["scans"],
                                          qtables),
         tiles_decode_ms, ("::subseq_pass_kernel", "::emit_pass_kernel",
                           "::supertiles_kernel", "::expand_supertiles_kernel",
                           "::idct_stream_to_plane_kernel"))
-    return per_symbol
+    return per_symbol, records_times
 
 
 def symbol_escapes(cfg, arrs, ctx, states):
@@ -1271,8 +1327,9 @@ def lane_path_kernels(dev: torch.device, data: bytes, card: str):
     total, tile_d, lanes = cfg.total_positions, cfg.tile_d, cfg.lanes
     prep_ms, prep = host_ms(lambda: W.lane_records(
         rec, m, pos0 >> 6, pos0, total, tile_d), dev)
-    val, wpos, du0, q, leftover, n_groups = prep
+    val, wpos, du0, q, leftover, n_groups, max_du = prep
     include = ~leftover
+    reach = torch.where(leftover, -1, max_du)  # as assemble_tiles makes it
     log(f"per-lane shape: {int(m.sum())} records of {count_symbols(coeffs)} "
         f"symbols, at most {int(m.max())} in a lane, emission buffer "
         f"{tuple(rec.shape)}, {n_groups} groups, {int(leftover.sum())} "
@@ -1302,28 +1359,52 @@ def lane_path_kernels(dev: torch.device, data: bytes, card: str):
         replaces="jpeggpu_tpu/ops/write_pallas.py:210", bound_ms=b_ms,
         bound_by=b_by, records=placed, **timing))
 
-    # K8, from K7's tiles
+    # K8, from K7's tiles: with reach, as assemble_tiles calls it, then at
+    # the full tile depth (the reference's function); the same rows
     rows, timing = measure(
-        dev, card, "K8 expand_tiles",
+        dev, card, "K8 expand_tiles with reach",
+        lambda: W.expand_tiles(tiles, du0, q, n_groups, reach),
+        lambda: W.expand_tiles_plain(tiles, du0, q, n_groups, reach),
+        max_abs_err)
+    full_rows, full = measure(
+        dev, card, "K8 expand_tiles at the full tile depth",
         lambda: W.expand_tiles(tiles, du0, q, n_groups),
         lambda: W.expand_tiles_plain(tiles, du0, q, n_groups), max_abs_err)
+    same = max_abs_err(rows, full_rows)
+    if same:
+        raise AssertionError("K8's rows differ with and without reach")
     # tile rows that match an output row: row d of lane l names data unit
     # du0[l] + d, and is read iff l lies in the window of that unit's group
+    # (and, with reach, du0[l] + d <= reach[l])
     j = du0[:, None].to(torch.int64) + torch.arange(tile_d, device=dev)
     first = q.to(torch.int64)[(j // 128).clamp(0, n_groups - 1)] * 32
     lane = torch.arange(lanes, device=dev)[:, None]
-    matched = int(((j < rows.shape[0]) & (lane >= first)
-                   & (lane < first + 64)).sum())
-    b_ms, b_by = bound(128 * matched + nbytes(du0, q, rows),
-                       rows.numel() * K8_OPS_PER_CELL
-                       + rows.shape[0] * 8 * 64 * K8_OPS_PER_CANDIDATE)
-    log(f"  {matched} of {lanes * tile_d} tile rows match an output row "
-        f"({matched / rows.shape[0]:.2f} per row)")
+    hit = (j < rows.shape[0]) & (lane >= first) & (lane < first + 64)
+    matched = int(hit.sum())
+    within = int((hit & (j <= reach[:, None])).sum())
+
+    def k8_bound(read: int, *inputs):
+        return bound(128 * read + nbytes(du0, q, rows, *inputs),
+                     rows.shape[0] * 64 * K8_OPS_PER_CANDIDATE
+                     + read * 64 * K8_OPS_PER_HIT_CELL
+                     + rows.numel() * K8_OPS_PER_CELL)
+
+    b_ms, b_by = k8_bound(within, reach)
+    full_b_ms, _ = k8_bound(matched)
+    log(f"  K8 reads {within} tile rows ({128 * within / 1e6:.1f} MB) with "
+        f"reach, {matched} of {lanes * tile_d} ({128 * matched / 1e6:.1f} MB) "
+        f"at the full depth, and writes {nbytes(rows) / 1e6:.1f} MB: bound "
+        f"{b_ms:.4f} ms with reach, {full_b_ms:.4f} ms without; the rows "
+        f"are the same  [{card}]")
     entries.append(dict(
         name="expand_tiles", route="cuda",
         source="jpeggpu_tpu_torch/kernels/csrc/expand_tiles.cu",
         replaces="jpeggpu_tpu/ops/write_pallas.py:685", bound_ms=b_ms,
-        bound_by=b_by, tile_rows_read=matched, **timing))
+        bound_by=b_by, tile_rows_read=within, mb_read=128 * within / 1e6,
+        **dict(timing, max_abs_err=max(timing["max_abs_err"],
+                                       full["max_abs_err"])),
+        full_depth=dict(bound_ms=full_b_ms, tile_rows_read=matched,
+                        mb_read=128 * matched / 1e6, **full)))
     for e in entries:
         log(f"  {e['name']}: bound {e['bound_ms']:.4f} ms by {e['bound_by']}")
 
@@ -1335,7 +1416,7 @@ def lane_path_kernels(dev: torch.device, data: bytes, card: str):
     stages["tiles_from_records"], _ = host_ms(
         lambda: W.tiles_from_records(val, wpos, m, du0, include, tile_d), dev)
     stages["expand_tiles"], _ = host_ms(
-        lambda: W.expand_tiles(tiles, du0, q, n_groups), dev)
+        lambda: W.expand_tiles(tiles, du0, q, n_groups, reach), dev)
     stages["scatter_leftover"], _ = host_ms(lambda: W.scatter_leftover(
         rows.view(-1), rec, m, pos0, leftover, total), dev)
     stages["decode_write_tiles (all of the above)"], (tcoeffs, none) = host_ms(
@@ -1358,7 +1439,8 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
     """This slice's main path on the sparse 12 MP image, with the launch
     counts read around it, against the default path and the plain path;
     then the default path, the forced supertile shape and `auto` on the
-    same image side by side."""
+    same image side by side. Returns the launch counts and the per-launch
+    times of the per-lane shape's kernels inside its decode."""
     n_comps = len(T.parse(data).components)
     planes, launches, by_slot = counted(lambda: decode_tiles(data, dev, AUTO))
     log(f"per-lane path launches: {launches}, idct_stream_to_plane by first "
@@ -1389,7 +1471,7 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
     mp = stream.size_x * stream.size_y / 1e6
     base_tuning = T.default_tuning()
     W.scatter_leftover.lanes = 0
-    decoders = {}
+    decoders, times = {}, {}
     for label, tuning, own in (
             ("sparse image, default path", base_tuning,
              ("::decode_write_kernel",)),
@@ -1414,7 +1496,7 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
         log(f"{label}: {W.scatter_leftover.lanes} leftover lane(s)")
         staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan),
                                        plan, dev)
-        profile_decode(
+        times = profile_decode(
             dev, card, label,
             lambda: pipeline.decode_pipeline(plan.signature, staged["scans"],
                                              staged["qtables"]),
@@ -1426,7 +1508,7 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
         for label, d in decoders.items():
             sync(dev)
             t0 = time.perf_counter()
-            d.decode(keep_on_device=True)
+            d.decode(device=True)
             sync(dev)
             turns[label].append((time.perf_counter() - t0) * 1e3)
     for label, d in decoders.items():
@@ -1435,7 +1517,8 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
             f"two: median {ms[7]:.2f} ms, quartiles {ms[3]:.2f} - "
             f"{ms[11]:.2f} ms  [{card}]")
         d.cleanup()
-    return launches, by_slot
+    # the last profile is the per-lane shape's: its kernels inside the decode
+    return launches, by_slot, times
 
 
 # --- the sharded decode (parallel/segments.py) and its kernel K9 ------------
@@ -1587,7 +1670,7 @@ def phase_sharded_times(dev: torch.device, data: bytes, card: str, mesh):
     runs = {
         "sharded, from staged inputs": lambda: SEG.decode_staged(staged),
         "unsharded, from staged inputs":
-            lambda: dec.decode(keep_on_device=True),
+            lambda: dec.decode(device=True),
         "sharded, with host staging": lambda: SEG.decode_sharded(data, mesh),
         "unsharded, with host staging": lambda: T.decode(data, device=dev),
     }
@@ -1671,8 +1754,8 @@ def main() -> int:
     entries = phase_kernels(dev, data, card)
     (launches, by_slot, tlaunches, tby_slot, decode_ms,
      tiles_decode_ms) = phase_main_path(dev, data, card)
-    per_symbol = phase_where_time_goes(dev, data, card, decode_ms,
-                                       tiles_decode_ms)
+    per_symbol, records_times = phase_where_time_goes(
+        dev, data, card, decode_ms, tiles_decode_ms)
     for e in entries:
         key = f"::{e['name']}_kernel"
         if key in per_symbol:
@@ -1686,7 +1769,17 @@ def main() -> int:
     log(f"{FULL_W}x48 sparse strip: decode on {dev.type} through "
         f"tile_mode='auto' == golden")
     entries += lane_path_kernels(dev, sparse, card)
-    llaunches, lby_slot = phase_lane_path(dev, sparse, card)
+    llaunches, lby_slot, lane_times = phase_lane_path(dev, sparse, card)
+    for e in entries:
+        # the records path's kernels inside a real decode (the profiler's,
+        # per launch): K4-K6 on the quality-90 image's supertile shape, K4,
+        # K7 and K8 on the sparse image's per-lane shape
+        sym = RECORDS_KERNEL_SYMBOLS.get(e["name"])
+        if sym in records_times:
+            e["ms_in_decode"] = records_times[sym]
+        if sym in lane_times:
+            e["ms_in_decode_sparse" if "ms_in_decode" in e
+              else "ms_in_decode"] = lane_times[sym]
 
     t0 = time.perf_counter()
     expect = golden.decode(data)

@@ -5,17 +5,21 @@ PyTorch's execution model:
 
   reference                      here
   ---------                      ----
-  jpeggpu_decoder_startup        Decoder(device=None)
+  jpeggpu_decoder_startup        Decoder(device=None, host_destuff=True)
   _parse_header                  Decoder.parse_header(data) -> ImgInfo
   _get_buffer_size               Decoder.get_buffer_size() -> bytes (the sum
                                  of the tensors the plan allocates)
   _transfer                      Decoder.transfer()  (host destuff + copy of
                                  scan words, tables, segment arrays)
-  _decode                        Decoder.decode() -> planes
+  _decode                        Decoder.decode(with_idct=True, device=False,
+                                 donate=False) -> planes
   _cleanup                       Decoder.cleanup() / context manager
 
 ``device=None`` is the CUDA device and raises where there is none; pass
 ``device="cpu"`` to run the kernels' plain versions (as the tests do).
+The other keywords are the JAX package's, with its meanings; what the port
+cannot do yet (``host_destuff=False``, ``with_idct=False``,
+``donate=True``) raises ``NotSupported``.
 
 The plan that ``parse_header`` builds carries the process default tuning
 (``config.set_default_tuning``): that is how a ``Decoder`` or ``decode`` is
@@ -30,7 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .errors import InvalidArgument
+from .errors import InvalidArgument, NotSupported
 from .pipeline import (
     DecodePlan,
     build_inputs,
@@ -57,7 +61,10 @@ class ImgInfo:
 class Decoder:
     """Reusable decoder handle (analog of jpeggpu_decoder_t)."""
 
-    def __init__(self, *, device=None):
+    def __init__(self, *, device=None, host_destuff: bool = True):
+        if not host_destuff:
+            raise NotSupported("host_destuff=False (the device destuff) is "
+                               "not ported yet")
         self._device = resolve_device(device)
         self._logging = False
         self._plan: Optional[DecodePlan] = None
@@ -110,17 +117,26 @@ class Decoder:
             self._host_inputs(), self._require_plan(), self._device)
 
     # -- phase 4: decode (jpeggpu.h:102-109) --
-    def decode(self, *, keep_on_device: bool = False) -> List:
+    def decode(self, *, with_idct: bool = True, device: bool = False,
+               donate: bool = False) -> List:
         """Run the device pipeline; returns per-component planes (uint8,
         cropped to component sizes — planar, possibly subsampled, exactly
         like the reference output contract jpeggpu.h:95-100).
 
-        With ``keep_on_device=True`` the planes are returned as tensors on
-        the decoder's device with no copy to the host, so they can be
-        chained into further device work. The default materialises numpy
-        arrays (one blocking copy).
+        With ``device=True`` the planes are returned as tensors on the
+        decoder's device with no copy to the host and no synchronisation,
+        so they can be chained into further device work. The default
+        materialises numpy arrays (one blocking copy).
+
+        ``with_idct=False`` (int16 coefficient planes) and ``donate=True``
+        (the staged inputs consumed by the decode) are the JAX package's
+        keywords and raise ``NotSupported`` until they are ported.
         """
         plan = self._require_plan()
+        if not with_idct:
+            raise NotSupported("decode(with_idct=False) is not ported yet")
+        if donate:
+            raise NotSupported("decode(donate=True) is not ported yet")
         if self._device_inputs is None:
             self.transfer()
         for s, scan in enumerate(plan.stream.scans):
@@ -129,7 +145,7 @@ class Decoder:
                       f"{scan.num_mcus_x}x{scan.num_mcus_y} MCUs")
         dev = self._device_inputs
         out = decode_pipeline(plan.signature, dev["scans"], dev["qtables"])
-        if keep_on_device:
+        if device:
             return list(out)
         return [p.contiguous().cpu().numpy() for p in out]
 

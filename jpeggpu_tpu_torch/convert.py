@@ -5,7 +5,7 @@ package, in the tests) is the staged state of one image: the scan geometry
 as plain ints and tuples, the per-scan numpy arrays that
 ``pipeline.build_scan_inputs`` makes (``words``, ``seg_of_subseq``,
 ``seg_first_lane``, ``seg_num_subseq``, ``maxcode``, ``vsm``, ``huffval``)
-and the quantisation tables. The symbol table of K1 and K2 is built here,
+and the quantisation tables. The symbol table of K1, K2 and K4 is built here,
 from the packed tables under the plan's ``fast_tables``, whenever a scan or
 a shard is staged (:func:`symbol_table`). The JAX package's ``build_plan`` /
 ``build_inputs`` produce the same fields under the same names, so a test
@@ -73,7 +73,7 @@ def scan_config(geometry: Mapping) -> ScanConfig:
 
 
 def symbol_table(maxcode, vsm, huffval, fast_tables: bool) -> torch.Tensor:
-    """The symbol table of K1 and K2 (``ops.huffman.build_symbol_table``)
+    """The symbol table of K1, K2 and K4 (``ops.huffman.build_symbol_table``)
     of the packed tables under the plan's ``fast_tables``, as a CPU tensor
     of its own. Built once per distinct set of tables: most streams carry
     the same few (those of T.81 Annex K), and a build costs milliseconds

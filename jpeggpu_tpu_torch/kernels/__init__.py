@@ -10,9 +10,9 @@ imported: a machine with no ``nvcc`` can import the package and run the
 plain versions on CPU tensors.
 
 Nine kernels: the whole sync round (``subseq_pass.cu``), the direct writing
-decode (``decode_write.cu``; both decode by the one-lookup symbol table),
-the stream -> plane tail (``idct_stream.cu``), the records write path: the
-emitting decode (``emit_pass.cu``), its
+decode (``decode_write.cu``), the stream -> plane tail
+(``idct_stream.cu``), the records write path: the emitting decode
+(``emit_pass.cu``; it, K1 and K2 decode by the one-lookup symbol table), its
 supertile shape (``supertiles.cu``, ``expand_supertiles.cu``) and its
 per-lane shape for sparse scans (``tiles.cu``, ``expand_tiles.cu``); and
 the plane IDCT of the sharded decode's tail (``idct_blocks.cu``).
@@ -59,7 +59,8 @@ _KERNELS = {
     "jpeggpu_idct_stream_to_plane": (
         "idct_stream.cu", ("idct_common.cuh",), [_P] * 4 + [_I] * 6 + [_P]),
     "jpeggpu_emit_pass": (
-        "emit_pass.cu", ("huffman_common.cuh",), [_P] * 17 + [_I] * 4 + [_P]),
+        "emit_pass.cu", ("huffman_common.cuh",),
+        [_P] * 17 + [_U64] + [_I] * 4 + [_P]),
     "jpeggpu_supertiles": (
         "supertiles.cu", ("tile_common.cuh",), [_P] * 5 + [_I] * 4 + [_P]),
     "jpeggpu_expand_supertiles": (
@@ -68,7 +69,7 @@ _KERNELS = {
     "jpeggpu_tiles": (
         "tiles.cu", ("tile_common.cuh",), [_P] * 7 + [_I] * 3 + [_P]),
     "jpeggpu_expand_tiles": (
-        "expand_tiles.cu", ("tile_common.cuh",), [_P] * 4 + [_I] * 3 + [_P]),
+        "expand_tiles.cu", ("tile_common.cuh",), [_P] * 5 + [_I] * 3 + [_P]),
     "jpeggpu_dequant_idct_plane": (
         "idct_blocks.cu", ("idct_common.cuh",), [_P] * 3 + [_I] * 2 + [_P]),
 }

@@ -18,13 +18,13 @@
 // are K1's (subseq_pass.cu, huffman_common.cuh next_symbol and UnitSlots):
 // one shared-memory load of the symbol table per symbol whose code has at
 // most 10 bits, the category from the entry and the value EXTENDed from the
-// stream bits as decode_symbol does it (the entry stores no value: one of
+// stream bits as decode_symbol_in does it (the entry stores no value: one of
 // up to 15 bits would not fit beside the fields in 16 bits), the data
-// unit's table slots in registers; escaped symbols take decode_symbol's
+// unit's table slots in registers; escaped symbols take decode_symbol_in's
 // search over the named slots' packed tables in shared memory. Each block
 // copies the named slots into shared memory (9.5 KB at 12 MP), as K1 does.
 // The store does not feed the chain, but the 2-byte writes of a warp land
-// on up to 32 cache lines each (ROADMAP, queue 3). The design needs none of
+// on up to 32 cache lines each (ROADMAP §2.B). The design needs none of
 // the TPU kernel's machinery because a thread can store 2 bytes anywhere:
 // the position ranges [pos0, pos0 + n) of the lanes are disjoint by
 // construction (pos0 is the exclusive scan of n), so there are no atomics,

@@ -1,21 +1,18 @@
 // Shared device code of the three entropy-decode kernels (subseq_pass.cu,
 // decode_write.cu, emit_pass.cu): a register bit reader over the destuffed
-// big-endian word stream and two ways to decode one symbol.
+// big-endian word stream and the decode of one symbol.
 //
-// - decode_symbol: the canonical-limit search (four dependent compares in
-//   shared memory) or the maxcode walk, then the vsm and huffval lookups,
-//   over the packed tables of the scan in shared memory (HuffTables,
-//   3.7 KB). K4 decodes every symbol this way (load_tables copies all
-//   eight tables).
-// - next_symbol (K1, K2): one shared-memory load resolves a symbol whose
-//   code has at most kSymBits = 10 bits, from the per-scan symbol table
-//   that ops/huffman.py build_symbol_table makes on the host: int16 entry
+// - next_symbol: one shared-memory load resolves a symbol whose code has at
+//   most kSymBits = 10 bits, from the per-scan symbol table that
+//   ops/huffman.py build_symbol_table makes on the host: int16 entry
 //   [slot << 10 | next 10 bits] holds the symbol of that slot's class (DC
 //   for even slots, AC for odd ones: slot = table id * 2 + class) as length
-//   | category << 5 | run << 10 | EOB << 14 | escape << 15. An escaped
-//   symbol (a longer code, or a garbage DC category whose symbol reaches 32
-//   bits) goes through decode_symbol's search unchanged, over the same
-//   HuffTables, of which K1 and K2 copy only the named slots.
+//   | category << 5 | run << 10 | EOB << 14 | escape << 15.
+// - decode_symbol_in: an escaped symbol (a longer code, or a garbage DC
+//   category whose symbol reaches 32 bits) takes the canonical-limit search
+//   (four dependent compares) or the maxcode walk, then the vsm and huffval
+//   lookups, over the packed tables (HuffTables) of the named slots, which
+//   load_symbol_table copies into shared memory beside the symbol table.
 //
 // Why 10 bits: the table of 8 slots x 2^10 entries x 2 bytes is 16 KB, the
 // most a block may hold; a block copies only the slots its scan names (4
@@ -56,34 +53,13 @@ struct alignas(16) HuffTables {
   int32_t vsm[kTables * 16];       // valptr - mincode per length
   uint32_t limits[kTables * 16];   // first left-aligned value with a longer code
   uint8_t huffval[kTables * 256];  // symbol values in canonical order
-  int32_t slot[2 * kMaxDuPerMcu];  // (dc table, ac table) per data unit of the MCU
 };
-
-// Cooperative copy of the per-scan tables into shared memory. Every thread
-// of the block must call it (it ends in a barrier).
-__device__ inline void load_tables(HuffTables& t, const int32_t* maxcode,
-                                   const int32_t* vsm, const int32_t* limits,
-                                   const int32_t* huffval, const int32_t* slots,
-                                   int du_per_mcu) {
-  for (int i = threadIdx.x; i < kTables * 16; i += blockDim.x) {
-    t.maxcode[i] = maxcode[i];
-    t.vsm[i] = vsm[i];
-    t.limits[i] = static_cast<uint32_t>(limits[i]);
-  }
-  for (int i = threadIdx.x; i < kTables * 256; i += blockDim.x) {
-    t.huffval[i] = static_cast<uint8_t>(huffval[i]);
-  }
-  for (int i = threadIdx.x; i < 2 * du_per_mcu; i += blockDim.x) {
-    t.slot[i] = slots[i];
-  }
-  __syncthreads();
-}
 
 // The symbol table of the slots the scan names, and their packed tables
 // for the escape path, in shared memory.
 struct alignas(16) SymbolTable {
   uint16_t entry[kTables * kSymEntries];  // 16 KB; unnamed slots unfilled
-  HuffTables esc;                         // named slots only; no slot pairs
+  HuffTables esc;                         // named slots only
 };
 
 // Cooperative copy of the named slots into shared memory, 16 bytes a
@@ -144,6 +120,7 @@ __device__ inline void load_symbol_table(
 // that advancing c reads no memory, takes no branch, and the next lookup
 // waits for one compare and one select after the run is known.
 struct UnitSlots {
+  static_assert(6 * kMaxDuPerMcu <= 64, "slot pairs fit 64 bits");
   uint64_t pairs;
   int du_per_mcu;
   int c, z;
@@ -213,20 +190,10 @@ struct BitReader {
 
   __device__ uint32_t peek() const { return static_cast<uint32_t>(buf >> 32); }
 
-  // Advance by 0 < len < 32 bits.
-  __device__ void skip(int len) {
-    buf <<= len;
-    nbits -= len;
-    if (nbits < 32) {
-      buf |= static_cast<uint64_t>(ahead) << (32 - nbits);
-      nbits += 32;
-      ahead = load(++next_word);
-    }
-  }
-
-  // skip, its refill's load predicated on the segment's end instead of
-  // branched around (K1, K2): in a warp some lane refills in nearly every
-  // iteration, and the branch cost all 32 lanes a reconvergence each time.
+  // Advance by 0 < len < 32 bits. The refill's load is predicated on the
+  // segment's end instead of branched around: in a warp some lane refills
+  // in nearly every iteration, and a branch cost all 32 lanes a
+  // reconvergence each time.
   __device__ void skip_predicated(int len) {
     buf <<= len;
     nbits -= len;
@@ -300,14 +267,6 @@ __device__ inline Symbol decode_symbol_in(const HuffTables& t, int tbl,
   return s;
 }
 
-// decode_symbol_in for data unit `c` of the MCU, its table from t.slot.
-template <bool FAST, bool NEED_VALUE>
-__device__ inline Symbol decode_symbol(const HuffTables& t, uint32_t data,
-                                       int c, int z) {
-  return decode_symbol_in<FAST, NEED_VALUE>(t, t.slot[2 * c + (z == 0 ? 0 : 1)],
-                                            data, z);
-}
-
 // The symbol at the reader by the symbol table, looked up at `off`
 // (UnitSlots::off) for zig-zag index `z`, and the reader moved past it. One
 // shared-memory load and about ten integer operations; an escaped symbol
@@ -341,16 +300,6 @@ __device__ inline Symbol next_symbol(const SymbolTable& t, BitReader& br,
     }
   }
   return s;
-}
-
-// Commit a symbol of `run` skipped positions into the (c, z) state.
-__device__ inline void advance_cz(int& c, int& z, int run, int du_per_mcu) {
-  z += run + 1;
-  if (z >= 64) {
-    z = 0;
-    c += 1;
-    if (c >= du_per_mcu) c = 0;
-  }
 }
 
 }  // namespace jpeggpu

@@ -33,7 +33,7 @@
 // refill's load is predicated, not branched around. In a warp the escape
 // (1.2% of symbols at quality 90, but some lane in about a third of the
 // iterations) and the refill are the divergent paths left. Escaped symbols
-// take decode_symbol's search over the named slots' packed tables in
+// take decode_symbol_in's search over the named slots' packed tables in
 // shared memory. One thread per subsequence, a 64-bit bit buffer in
 // registers, one-warp blocks so that the 640 warps of a 12 MP image spread
 // over all SMs and a slow lane holds back only 31 others. Each block copies

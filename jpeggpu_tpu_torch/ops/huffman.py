@@ -24,7 +24,7 @@ decode that emits packed records for the records write path of
 ``ops/write.py``). Each has its plain PyTorch version beside it, lock-step
 over all lanes with gathers for the bit loads and table lookups; a wrapper
 takes the plain version only for CPU tensors and launches its kernel for
-CUDA tensors. K1 and K2 resolve a symbol whose code fits in
+CUDA tensors. K1, K2 and K4 resolve a symbol whose code fits in
 :data:`SYMTAB_BITS` bits with one lookup in the per-scan symbol table
 (:func:`build_symbol_table`); :func:`_decode_symbol_table` is a tensor
 model of that decode for the tests, while the plain versions keep
@@ -105,7 +105,7 @@ class ScanArrays:
     maxcode: torch.Tensor  # int32[8,16]
     vsm: torch.Tensor  # int32[8,16] valptr - mincode
     huffval: torch.Tensor  # int32[8*256]
-    # int16[8 << SYMTAB_BITS]: the one-lookup symbol table of K1 and K2
+    # int16[8 << SYMTAB_BITS]: the one-lookup symbol table of K1, K2 and K4
     # (build_symbol_table), built on the host when the scan is staged
     # (convert.symbol_table)
     symtab: torch.Tensor
@@ -308,7 +308,7 @@ def _decode_symbol(cfg: ScanConfig, t: _Plain, data, c, z,
     return length, _extend(data, cat_len, cat), run
 
 
-# --- the one-lookup symbol table of K1 and K2 --------------------------------
+# --- the one-lookup symbol table of K1, K2 and K4 ---------------------------
 #
 # Entry [slot << SYMTAB_BITS | prefix] (int16) holds what a code whose first
 # SYMTAB_BITS bits are `prefix` decodes to in table `slot`, as a symbol of
@@ -340,7 +340,7 @@ def check_slot_classes(cfg: ScanConfig, where: str) -> None:
 
 
 def build_symbol_table(maxcode, vsm, huffval, fast_tables: bool) -> np.ndarray:
-    """The per-scan symbol table of K1 and K2 from the packed Huffman
+    """The per-scan symbol table of K1, K2 and K4 from the packed Huffman
     tables (numpy int32 ``[8, 16]``, ``[8, 16]``, ``[8 * 256]``), as numpy
     int16[8 << SYMTAB_BITS], built on the host under the scan's
     ``fast_tables``.
@@ -470,28 +470,24 @@ def _check_lane_tensors(where: str, dev: torch.device, lanes: int, **tensors):
                 f"{tuple(t.shape)} on {t.device}")
 
 
-def _table_ptrs(arrs: ScanArrays, ctx: Ctx, dev: torch.device):
-    tabs = (arrs.maxcode, arrs.vsm, ctx.limits, arrs.huffval, ctx.slots)
+def _symtab_ptrs(where: str, cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx,
+                 dev: torch.device):
+    """The symbol table and the packed tables of the escape path, as K1,
+    K2 and K4 take them."""
+    check_slot_classes(cfg, where)
+    _check_lane_tensors(where, dev, 8 << SYMTAB_BITS,
+                        symtab=(arrs.symtab, torch.int16))
+    tabs = (arrs.maxcode, arrs.vsm, ctx.limits, arrs.huffval)
     for t in tabs:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("Huffman tables must be contiguous int32 "
                              f"tensors on {dev}")
-    return [t.data_ptr() for t in tabs]
-
-
-def _symtab_ptrs(where: str, cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx,
-                 dev: torch.device):
-    """The symbol table and the packed tables of the escape path, as K1
-    and K2 take them."""
-    check_slot_classes(cfg, where)
-    _check_lane_tensors(where, dev, 8 << SYMTAB_BITS,
-                        symtab=(arrs.symtab, torch.int16))
-    return [arrs.symtab.data_ptr()] + _table_ptrs(arrs, ctx, dev)[:4]
+    return [arrs.symtab.data_ptr()] + [t.data_ptr() for t in tabs]
 
 
 def slot_pairs(cfg: ScanConfig) -> int:
-    """The (DC, AC) table slots of the MCU's data units packed for K1 and
-    K2, 6 bits a data unit (DC in the low 3), from the static geometry: a
+    """The (DC, AC) table slots of the MCU's data units packed for K1, K2
+    and K4, 6 bits a data unit (DC in the low 3), from the static geometry: a
     kernel argument, so that no block waits on a load before it copies its
     tables."""
     pairs, start = 0, 0
@@ -915,9 +911,10 @@ def decode_write_emit(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
     leave inert holes between them, which the contract allows.
 
     CUDA tensors: kernel K4 (``kernels/csrc/emit_pass.cu``; replaces the
-    Pallas kernel behind ``jpeggpu_tpu/ops/huffman_pallas.py: emit_pass``).
-    Bound like K2 by the slowest lane's chain of dependent operations;
-    see the note in the source. On the card the slots at and past ``m[l]``
+    Pallas kernel behind ``jpeggpu_tpu/ops/huffman_pallas.py: emit_pass``),
+    which decodes as K2 does, by the one-lookup symbol table. Bound like
+    K2 by the slowest lane's chain of dependent operations; see the note
+    in the source. On the card the slots at and past ``m[l]``
     are left uninitialised (the buffer is ``torch.empty``: filling it with
     the inert record would write s_cap * lanes * 4 bytes that no consumer
     reads). CPU tensors: the plain version, which fills them. The keywords
@@ -950,10 +947,10 @@ def decode_write_emit(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c, z,
     fn = kernels.get("jpeggpu_emit_pass")
     err = fn(arrs.words.data_ptr(), ctx.word_end.data_ptr(),
              ctx.seg_base_bits.data_ptr(), ctx.end_subseq.data_ptr(),
-             *_table_ptrs(arrs, ctx, dev),
+             *_symtab_ptrs("decode_write_emit", cfg, arrs, ctx, dev),
              sp.data_ptr(), sc.data_ptr(), sz.data_ptr(), pos0.data_ptr(),
              bound.data_ptr(), active0.data_ptr(), rec.data_ptr(),
-             m.data_ptr(), lanes, s_cap, cfg.du_per_mcu,
+             m.data_ptr(), slot_pairs(cfg), lanes, s_cap, cfg.du_per_mcu,
              int(cfg.fast_tables), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "decode_write_emit")
     decode_write_emit.launches += 1

@@ -436,7 +436,8 @@ tiles_from_records.launches = 0
 
 # --- K8: per-lane tiles -> dense rows ----------------------------------------
 
-def expand_tiles_plain(tiles, du0, q, n_groups: int) -> torch.Tensor:
+def expand_tiles_plain(tiles, du0, q, n_groups: int,
+                       reach=None) -> torch.Tensor:
     """Plain version of :func:`expand_tiles`: 64 masked row gathers summed
     in int32, on whatever device holds the tensors."""
     lanes, tile_d, _ = tiles.shape
@@ -452,6 +453,8 @@ def expand_tiles_plain(tiles, du0, q, n_groups: int) -> torch.Tensor:
         lane = lane.clamp(0, lanes - 1)
         d = j - du0.to(torch.int64)[lane][:, None]
         hit = in_range[:, None] & (d >= 0) & (d < tile_d)
+        if reach is not None:
+            hit &= j <= reach.to(torch.int64)[lane][:, None]
         row = (lane[:, None] * tile_d + d.clamp(0, tile_d - 1)).reshape(-1)
         got = tiles2d.index_select(0, row).to(torch.int32)
         acc += torch.where(hit.reshape(-1, 1), got, 0)
@@ -459,25 +462,29 @@ def expand_tiles_plain(tiles, du0, q, n_groups: int) -> torch.Tensor:
 
 
 def expand_tiles(tiles: torch.Tensor, du0: torch.Tensor, q: torch.Tensor,
-                 n_groups: int) -> torch.Tensor:
+                 n_groups: int, reach=None) -> torch.Tensor:
     """Per-lane tiles -> dense int16[n_groups * 128, 64] natural-order rows.
 
     Output row ``j`` of group ``g = j // 128`` is the sum (int16 wrap) of
     the rows ``d = j - du0[l]`` of the tiles of the 64 candidate lanes
-    ``l`` in ``[32 * q[g], 32 * q[g] + 64)`` for which ``0 <= d < tile_d``;
-    a row shared by two lanes (a subsequence that ends inside a data unit)
-    sums here, and the zero tile of an excluded lane matches harmlessly. A
+    ``l`` in ``[32 * q[g], 32 * q[g] + 64)`` for which ``0 <= d < tile_d``
+    and, where ``reach`` (int32[lanes]) is given, ``j <= reach[l]``; a row
+    shared by two lanes (a subsequence that ends inside a data unit) sums
+    here, and the zero tile of an excluded lane matches harmlessly. A
     candidate outside ``[0, lanes)`` contributes nothing. There is no DC
-    side output in this shape.
+    side output in this shape. ``reach=None`` is the full tile depth, the
+    reference's function; :func:`assemble_tiles` passes the last data unit
+    each lane's tile can hold nonzero, which leaves the rows unchanged and
+    spares reading the rows of zeros past it.
 
     CUDA tensors: kernel K8 (``kernels/csrc/expand_tiles.cu``; replaces the
     Pallas kernel behind ``jpeggpu_tpu/ops/write_pallas.py: expand_tiles``).
-    Bound by bytes: the matching tile rows are read once, the rows written
+    Bound by bytes: the hit tile rows are read once, the rows written
     once. CPU tensors: the plain version.
     """
     dev = tiles.device
     if dev.type == "cpu":
-        return expand_tiles_plain(tiles, du0, q, n_groups)
+        return expand_tiles_plain(tiles, du0, q, n_groups, reach)
     if dev.type != "cuda":
         raise ValueError(f"expand_tiles: unsupported device {dev}")
     where = "expand_tiles"
@@ -488,14 +495,18 @@ def expand_tiles(tiles: torch.Tensor, du0: torch.Tensor, q: torch.Tensor,
     _check(where, "tiles", tiles, dev, torch.int16, (lanes, tile_d, 64))
     _check(where, "du0", du0, dev, torch.int32, (lanes,))
     _check(where, "q", q, dev, torch.int32, (n_groups,))
+    if reach is not None:
+        _check(where, "reach", reach, dev, torch.int32, (lanes,))
     if tiles.data_ptr() % 16:
         raise ValueError(f"{where}: tiles must be 16-byte aligned (the "
                          "kernel reads 16 bytes at a time)")
     n_rows = n_groups * _GROUP_DU
     rows = torch.empty((n_rows, 64), dtype=torch.int16, device=dev)
     fn = kernels.get("jpeggpu_expand_tiles")
-    err = fn(tiles.data_ptr(), du0.data_ptr(), q.data_ptr(), rows.data_ptr(),
-             lanes, tile_d, n_rows, torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(tiles.data_ptr(), du0.data_ptr(),
+             None if reach is None else reach.data_ptr(), q.data_ptr(),
+             rows.data_ptr(), lanes, tile_d, n_rows,
+             torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, where)
     expand_tiles.launches += 1
     return rows
@@ -549,12 +560,14 @@ def lane_records(rec, m, du0_raw, pos0, total: int, tile_d: int = 96):
     """The preparation in front of K7 and K8: the unpacked records, which
     lanes are leftover and the expand windows.
 
-    Returns ``(val, wpos, du0, q, leftover, n_groups)``: ``val`` / ``wpos``
-    (int16 / int32 ``[s_cap, lanes]``, value and global position, -1 on
-    inert slots) and ``du0`` (int32[lanes], nondecreasing) for
+    Returns ``(val, wpos, du0, q, leftover, n_groups, max_du)``: ``val`` /
+    ``wpos`` (int16 / int32 ``[s_cap, lanes]``, value and global position,
+    -1 on inert slots) and ``du0`` (int32[lanes], nondecreasing) for
     :func:`tiles_from_records`, whose ``include`` is ``~leftover``; ``q``
     (int32[n_groups]) for :func:`expand_tiles`; the leftover lane mask
-    (bool[lanes]) and the group count. The full-depth record buffer is
+    (bool[lanes]), the group count, and the last data unit of each lane's
+    records (int32[lanes], -1 for none), from which :func:`assemble_tiles`
+    makes :func:`expand_tiles`' ``reach``. The full-depth record buffer is
     unpacked up front: the scans that take this shape are sparse, with few
     lanes and few records.
     """
@@ -583,7 +596,7 @@ def lane_records(rec, m, du0_raw, pos0, total: int, tile_d: int = 96):
     # the final q can only move windows upward: every lane that passed the
     # q1 check still fits
     q = _slab_index(du0, max_du, ~leftover, lanes, n_groups)
-    return val, wpos, du0, q, leftover, n_groups
+    return val, wpos, du0, q, leftover, n_groups, max_du
 
 
 def assemble_tiles(rec, m, du0_raw, pos0, total: int,
@@ -595,10 +608,14 @@ def assemble_tiles(rec, m, du0_raw, pos0, total: int,
     still difference-coded. Leftover lanes drain through
     :func:`scatter_leftover` at its default trim.
     """
-    val, wpos, du0, q, leftover, n_groups = lane_records(
+    val, wpos, du0, q, leftover, n_groups, max_du = lane_records(
         rec, m, du0_raw, pos0, total, tile_d)
     tiles = tiles_from_records(val, wpos, m, du0, ~leftover, tile_d)
-    out_flat = expand_tiles(tiles, du0, q, n_groups).view(-1)
+    # K7 places a record only at rows d <= max_du - du0 and writes zeros
+    # past them, and a leftover lane's tile is all zeros: the rows past
+    # reach add nothing, so K8 need not read them
+    reach = torch.where(leftover, -1, max_du)
+    out_flat = expand_tiles(tiles, du0, q, n_groups, reach).view(-1)
     scatter_leftover(out_flat, rec, m, pos0, leftover, total)
     return out_flat[:total]
 

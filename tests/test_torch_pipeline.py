@@ -156,7 +156,7 @@ def test_decoder_phases(data_420_rst2, port_planes):
             assert not T.is_css_444(info.subsampling, info.num_components)
             size = d.get_buffer_size()
             d.transfer()
-            planes = d.decode(keep_on_device=True)
+            planes = d.decode(device=True)
             assert all(isinstance(p, torch.Tensor) for p in planes)
             assert all(np.array_equal(a.numpy(), b)
                        for a, b in zip(planes, port_planes))
@@ -168,6 +168,56 @@ def test_decoder_phases(data_420_rst2, port_planes):
             assert size >= held + 2 * cfg.total_positions
     with pytest.raises(T.InvalidArgument):
         T.Decoder(device="cpu").decode()
+
+
+def test_decoder_device_true_returns_tensors_on_its_device(data_420_rst2,
+                                                          port_planes):
+    """decode(device=True), the JAX package's keyword: the planes stay
+    tensors on the decoder's device, the same planes as the numpy ones."""
+    with T.Decoder(device="cpu") as d:
+        d.parse_header(data_420_rst2)
+        planes = d.decode(device=True)
+        host = d.decode()
+    assert all(isinstance(p, torch.Tensor) and p.device == torch.device("cpu")
+               and p.dtype == torch.uint8 for p in planes)
+    assert all(isinstance(p, np.ndarray) for p in host)
+    assert all(np.array_equal(a.numpy(), b) and np.array_equal(c, b)
+               for a, c, b in zip(planes, host, port_planes))
+
+
+@pytest.mark.parametrize("keyword", [dict(with_idct=False), dict(donate=True)],
+                         ids=["with_idct", "donate"])
+def test_decoder_unported_decode_keywords_raise_not_supported(data_420_rst2,
+                                                              keyword):
+    """The JAX package's decode keywords that the port does not do yet
+    raise NotSupported (status NOT_SUPPORTED), not TypeError; their
+    defaults decode."""
+    with T.Decoder(device="cpu") as d:
+        d.parse_header(data_420_rst2)
+        with pytest.raises(T.NotSupported) as err:
+            d.decode(**keyword)
+        assert err.value.status == T.Status.NOT_SUPPORTED
+        default = {k: not v for k, v in keyword.items()}
+        assert len(d.decode(**default)) == 3
+
+
+def test_decoder_host_destuff_false_raises_not_supported(data_420_rst2):
+    """Decoder(host_destuff=False), the JAX package's device destuff, is not
+    ported: NotSupported; host_destuff=True is the default and decodes."""
+    with pytest.raises(T.NotSupported):
+        T.Decoder(device="cpu", host_destuff=False)
+    with T.Decoder(device="cpu", host_destuff=True) as d:
+        d.parse_header(data_420_rst2)
+        assert len(d.decode()) == 3
+
+
+def test_decoder_keep_on_device_is_gone(data_420_rst2):
+    """The port's old keep_on_device keyword is not the JAX package's, and
+    is refused like any other unknown keyword."""
+    with T.Decoder(device="cpu") as d:
+        d.parse_header(data_420_rst2)
+        with pytest.raises(TypeError):
+            d.decode(keep_on_device=True)
 
 
 def test_decode_rgb(test_image, data_420_rst2):

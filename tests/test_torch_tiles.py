@@ -346,6 +346,74 @@ def test_expand_window_never_leaves_the_lanes():
     assert np.all(rows[128:136] == rows[0, 0]) and not rows[136:].any()
 
 
+@pytest.mark.parametrize("records", ["port", "jax"])
+def test_expand_with_reach_matches_full_depth_and_jax(port_stage, jax_stage,
+                                                      records):
+    """On the tiles that K7's plain version makes from the 420_rst2 records
+    (the port's own, and the JAX emitter's with its holes), K8 with the
+    reach that assemble_tiles passes (max_du, -1 for a leftover lane) gives
+    the rows of the full tile depth and of the JAX expand_tiles, though it
+    leaves tile rows out."""
+    from jpeggpu_tpu.ops import write_pallas as WP
+
+    s, cfg = port_stage, port_stage["cfg"]
+    rec, m = ((s["rec"], s["m"]) if records == "port" else
+              convert.to_torch((jax_stage["rec"], jax_stage["m"])))
+    val, wpos, du0, q, leftover, n_groups, max_du = TW.lane_records(
+        rec, m, s["pos0"] >> 6, s["pos0"], cfg.total_positions, cfg.tile_d)
+    tiles = TW.tiles_from_records_plain(val, wpos, m, du0, ~leftover,
+                                        cfg.tile_d)
+    reach = torch.where(leftover, -1, max_du)
+    got = TW.expand_tiles(tiles, du0, q, n_groups, reach)
+    full = TW.expand_tiles(tiles, du0, q, n_groups)
+    expect = np.asarray(WP.expand_tiles(*(jnp.asarray(x.numpy()) for x in (
+        tiles, du0, q)), n_groups))
+    assert got.dtype == torch.int16 and got.shape == (n_groups * 128, 64)
+    assert np.array_equal(got.numpy(), full.numpy())
+    assert np.array_equal(got.numpy(), expect) and expect.any()
+    # reach leaves rows of the tiles out, and only rows of zeros
+    past = (du0[:, None].to(torch.int64) + torch.arange(cfg.tile_d)
+            > reach[:, None])
+    assert past.any() and not tiles[past].any()
+
+
+@pytest.mark.parametrize("pattern", ["inside", "extremes"])
+def test_expand_reach_masks_exactly_the_rows_past_it(pattern):
+    """On stuffed random tiles (no row of zeros) K8 with reach equals K8 at
+    the full depth on the same tiles with the rows past reach zeroed, and
+    the JAX expand_tiles on those; without the zeroing they differ."""
+    from jpeggpu_tpu.ops import write_pallas as WP
+
+    rng = np.random.default_rng(17)
+    lanes, tile_d, n_groups = 128, 32, 8
+    # sums of up to ten rows stay inside int16, where the reference, which
+    # sums in float32, agrees
+    tiles = rng.integers(-3000, 3001, (lanes, tile_d, 64)).astype(np.int16)
+    du0 = np.sort(rng.integers(0, n_groups * 128 - tile_d, lanes)).astype(
+        np.int32)
+    reach = du0.astype(np.int64) + rng.integers(-3, tile_d + 3, lanes)
+    if pattern == "extremes":
+        i32 = np.iinfo(np.int32)
+        reach[::5] = -1
+        reach[1::7] = i32.min
+        reach[2::7] = i32.max
+    reach = reach.astype(np.int32)
+    chosen = (du0[:, None].astype(np.int64) + np.arange(tile_d)
+              <= reach[:, None])
+    masked = np.where(chosen[..., None], tiles, 0).astype(np.int16)
+    reach_q = np.maximum.accumulate(du0 + tile_d - 1)
+    q = np.clip(np.searchsorted(reach_q, np.arange(n_groups) * 128) // 32, 0,
+                lanes // 32 - 2).astype(np.int32)
+    t, d, qq, r, mk = convert.to_torch((tiles, du0, q, reach, masked))
+    got = TW.expand_tiles(t, d, qq, n_groups, r).numpy()
+    assert np.array_equal(got, TW.expand_tiles(mk, d, qq, n_groups).numpy())
+    expect = np.asarray(WP.expand_tiles(jnp.asarray(masked), jnp.asarray(du0),
+                                        jnp.asarray(q), n_groups))
+    assert np.array_equal(got, expect)
+    assert not np.array_equal(got, TW.expand_tiles(t, d, qq, n_groups).numpy())
+    assert (~chosen).any() and chosen.any()
+
+
 # --- the tensor code around the kernels -------------------------------------
 
 @pytest.fixture(scope="module")
@@ -454,6 +522,40 @@ def test_assemble_leftover_routes_match_jax(test_image, make):
                            s["pos0"].numpy(), cfg.total_positions, cfg.tile_d)
     assert np.array_equal(coeffs.numpy(), expect)
     assert np.array_equal(coeffs.numpy(), s["fused"].numpy())
+
+
+def test_assemble_passes_reach_from_lane_records(test_image, monkeypatch):
+    """assemble_tiles hands K8 reach = max_du of lane_records, -1 for the
+    leftover lanes, on the flat image (whose lanes drain through the
+    leftover scatter too); the decode still equals golden and the direct
+    write."""
+    seen = {}
+    orig_prep, orig_expand = TW.lane_records, TW.expand_tiles
+
+    def prep(*a, **k):
+        seen["prep"] = orig_prep(*a, **k)
+        return seen["prep"]
+
+    def expand(tiles, du0, q, n_groups, reach=None):
+        seen["reach"] = reach
+        return orig_expand(tiles, du0, q, n_groups, reach)
+
+    monkeypatch.setattr(TW, "lane_records", prep)
+    monkeypatch.setattr(TW, "expand_tiles", expand)
+    data = _flat_gray(test_image)
+    s = _port_stage(data)
+    cfg = s["cfg"]
+    coeffs = TW.assemble_tiles(s["rec"], s["m"], s["pos0"] >> 6, s["pos0"],
+                               cfg.total_positions, cfg.tile_d)
+    assert np.array_equal(coeffs.numpy(), s["fused"].numpy())
+    _, wpos, du0, _, leftover, _, max_du = seen["prep"]
+    span, ext = TW._lane_extents(wpos, s["m"], du0, cfg.tile_d)
+    assert np.array_equal(max_du.numpy(), ext.numpy())
+    assert leftover.any() and (~leftover & (s["m"] > 0)).any()
+    assert np.array_equal(seen["reach"].numpy(),
+                          torch.where(leftover, -1, max_du).numpy())
+    _, planes = _decode(data, _LANE)
+    assert _same(planes, golden.decode(data))
 
 
 def test_assemble_routes_unsorted_lanes_to_leftover(port_stage):
