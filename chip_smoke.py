@@ -26,14 +26,21 @@ line) on the first phase that fails; nothing is caught and carried past:
    and K4 (random words, random states and entry states, saturated tables,
    garbage DC categories and codes of up to 16 bits, whose symbols escape
    the one-lookup symbol table or take the reader's seek; K1's flags and
-   the whole sync loop included);
+   the whole sync loop included), K3 (`phase_k3_any_input`: 4:2:0, 4:2:2,
+   4:4:0, 4:1:1, 4:4:4, gray and non-interleaved geometries, MCU rows of
+   1, R-1, R and R+1 MCUs for a run of R, coefficients and DC at +-32767
+   and -32768, table bytes at and above 128; all components in one launch
+   and each alone) and K9 (made-up planes, one at a time and of mixed
+   shapes in one launch);
 4. a 4032x3024 (12 MP) interleaved 4:2:0 JPEG, restart interval 252,
    quality 90, made from a seed: a strip of MCU rows is encoded with the
    numpy encoder and its restart segments are repeated to 189 rows. At
    these shapes each kernel's wrapper is held against its plain PyTorch
    version on the same CUDA tensors (all exact, max_abs_err must be 0): K1,
    the whole sync round in one launch, on the blind and on a shifted round
-   (states and convergence flag), K2 on the whole coefficient stream, K3 on all three components, and the records write path's K4
+   (states and convergence flag), K2 on the whole coefficient stream, K3
+   (one launch for all three components, and each component alone), and
+   the records write path's K4
    (from the converged states), K5 (from the preparation of K4's records)
    and K6 (from K5's supertiles). The strip itself is checked against
    the golden decoder, and `jpeggpu_tpu_torch.decode` of the 12 MP image
@@ -41,7 +48,8 @@ line) on the first phase that fails; nothing is caught and carried past:
 5. the main paths, each with every launch count set to 0 just before and
    read just after: `jpeggpu_tpu_torch.decode(data)` must launch K1 once
    per sync round (as many as `sync_states` alone takes on the image), K2
-   once, K3 once per component and none of K4-K9; `decode_jpeg_device(data, plan=build_plan(
+   once, K3 once per scan (covering every component once) and none of
+   K4-K9; `decode_jpeg_device(data, plan=build_plan(
    parse(data), tuning=Tuning(write_mode="tiles")))`, and a `Decoder`
    under `set_default_tuning`, must launch K1, K4, K5, K6 and K3 and not
    K2, K7 or K8, and give the same planes;
@@ -123,10 +131,13 @@ INT_OPS_PER_S = 67e12 / 2
 K1_OPS_PER_SYMBOL = 33
 K2_OPS_PER_SYMBOL = 55
 K4_OPS_PER_SYMBOL = 56
-# per pixel, from kernels/csrc/idct_stream.cu: two 8-point passes of 62
-# operations per 8 values, dequantise and wrap 3, level shift, clamp and
-# pack 6
-K3_OPS_PER_PIXEL = 25
+# per pixel, from kernels/csrc/idct_stream.cu and idct_common.cuh: two
+# 8-point passes of 62 operations per 8 values, the unpack 0.5 (one shift
+# per two values), dequantise and wrap 2, clamp and pack 0.5 (one
+# instruction per two pixels; the level shift rides on the rounding bias),
+# the reordering of the unit's chunks read from shared memory 1.5 (96
+# selects per unit)
+K3_OPS_PER_PIXEL = 20
 # K5, from kernels/csrc/supertiles.cu: unpack, gate, address and add
 # per record 10, zero and pack per output cell 2. K6, from
 # kernels/csrc/expand_supertiles.cu: per output cell one add per matching
@@ -143,8 +154,9 @@ K6_OPS_PER_CELL = 4
 # per output cell the pack and the store 2
 K7_OPS_PER_RECORD, K7_OPS_PER_CELL = 10, 2
 K8_OPS_PER_CANDIDATE, K8_OPS_PER_HIT_CELL, K8_OPS_PER_CELL = 11, 4, 2
-# K9, from kernels/csrc/idct_blocks.cu: K3's arithmetic without the DC splice
-K9_OPS_PER_PIXEL = K3_OPS_PER_PIXEL
+# K9, from kernels/csrc/idct_blocks.cu: K3's arithmetic without the
+# reordering, rounded up
+K9_OPS_PER_PIXEL = 19
 
 TILES = T.Tuning(write_mode="tiles", tile_mode="super")
 LANE = T.Tuning(write_mode="tiles", tile_mode="lane")
@@ -340,10 +352,10 @@ def phase_environment(dev: torch.device) -> str:
 
 def phase_build(dev: torch.device) -> None:
     built = ("jpeggpu_subseq_pass", "jpeggpu_decode_write",
-             "jpeggpu_idct_stream_to_plane", "jpeggpu_emit_pass",
+             "jpeggpu_idct_stream_to_planes", "jpeggpu_emit_pass",
              "jpeggpu_supertiles", "jpeggpu_expand_supertiles",
              "jpeggpu_tiles", "jpeggpu_expand_tiles",
-             "jpeggpu_dequant_idct_plane")
+             "jpeggpu_dequant_idct_planes")
     for fn in built:
         kernels.get(fn)
     for entry in kernels.build_log:
@@ -732,9 +744,29 @@ def phase_kernels(dev: torch.device, data: bytes, card: str):
         library_ms=None, call_ms=k2_call, ms_warm_l2=k2_warm,
         ms_cold_l2=k2_cold, symbols=symbols))
 
-    # K3, every component
+    # K3: one launch for all the scan's components, then each alone
     comp_slots = tuple((k[1], k[2] * k[3]) for k in sp.comps)
     dcv = DC.undelta_dc_values(cfg, comp_slots, coeffs)
+    k3_args = (coeffs, qtables, sp.idct_geometry, cfg.du_per_mcu, dcv)
+    n_runs = I.stream_runs(sp.num_mcus_x, sp.num_mcus_y, cfg.du_per_mcu)[2]
+    planes, timing = measure(
+        dev, card, f"K3 idct_stream_to_planes, {len(sp.comps)} components "
+        f"in one launch ({n_runs} runs)",
+        lambda: I.idct_stream_to_planes(*k3_args),
+        lambda: I.idct_stream_to_planes_plain(*k3_args),
+        lambda got, ref: max(max_abs_err(a, b) for a, b in zip(got, ref)))
+    pixels = sum(pl.numel() for pl in planes)
+    b_ms, b_by = bound(pixels * 2 + pixels // 64 * 2 + 64 * 4 * len(planes)
+                       + pixels, pixels * K3_OPS_PER_PIXEL)
+    log(f"  K3: {pixels * 2 / 1e6:.2f} MB in, {pixels / 1e6:.2f} MB out, "
+        f"bound {b_ms:.4f} ms by {b_by}, "
+        f"{pixels * K3_OPS_PER_PIXEL / INT_OPS_PER_S * 1e3:.4f} ms by "
+        f"operations  [{card}]")
+    entries.append(dict(
+        name="idct_stream_to_planes", route="cuda",
+        source="jpeggpu_tpu_torch/kernels/csrc/idct_stream.cu",
+        replaces="jpeggpu_tpu/ops/idct_pallas.py:185", bound_ms=b_ms,
+        bound_by=b_by, components=len(planes), **timing))
     for comp in sp.comps:
         args = (coeffs, qtables[comp[6]], sp.num_mcus_x, sp.num_mcus_y,
                 cfg.du_per_mcu, comp[1], comp[2], comp[3], dcv)
@@ -749,7 +781,7 @@ def phase_kernels(dev: torch.device, data: bytes, card: str):
         pixels = got.numel()
         b_ms, b_by = bound(pixels * 2 + pixels // 64 * 2 + 64 * 4 + pixels,
                            pixels * K3_OPS_PER_PIXEL)
-        log(f"K3 idct_stream_to_plane component {comp[0]} "
+        log(f"K3 idct_stream_to_plane (one component alone) {comp[0]} "
             f"{tuple(got.shape)}: max_abs_err {err}, {warm_ms:.4f} ms on the "
             f"device with L2 warm, {cold_ms:.4f} ms cold ({call_ms:.4f} ms a "
             f"single call), plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms  "
@@ -915,10 +947,10 @@ def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
     return entries
 
 
-WRAPPERS = (H.subseq_pass, H.decode_write, I.idct_stream_to_plane,
+WRAPPERS = (H.subseq_pass, H.decode_write, I.idct_stream_to_planes,
             H.decode_write_emit, W.supertiles_from_records,
             W.expand_supertiles, W.tiles_from_records, W.expand_tiles,
-            I.dequant_idct_plane)
+            I.dequant_idct_planes)
 # the records path's wrappers -> their kernels' names in a profile
 RECORDS_KERNEL_SYMBOLS = {
     "decode_write_emit": "::emit_pass_kernel",
@@ -929,18 +961,26 @@ RECORDS_KERNEL_SYMBOLS = {
 }
 SUPER_KERNELS = ("supertiles_from_records", "expand_supertiles")
 LANE_KERNELS = ("tiles_from_records", "expand_tiles")
-SHARDED_KERNELS = ("dequant_idct_plane",)
+SHARDED_KERNELS = ("dequant_idct_planes",)
 
 
 def counted(fn):
     """Run `fn` with every wrapper's launch count set to 0 just before and
-    read just after; returns (result, counts by wrapper, K3's by slot)."""
+    read just after; returns (result, counts by wrapper, the components K3's
+    launches covered, by slot)."""
     for w in WRAPPERS:
         w.launches = 0
-    I.idct_stream_to_plane.launches_by_slot.clear()
+    I.idct_stream_to_planes.launches_by_slot.clear()
     out = fn()
     return (out, {w.__name__: w.launches for w in WRAPPERS},
-            dict(I.idct_stream_to_plane.launches_by_slot))
+            dict(I.idct_stream_to_planes.launches_by_slot))
+
+
+def k3_once(launches, by_slot, n_comps: int) -> bool:
+    """K3 launched once (the scan's one launch) and covered each of the
+    image's `n_comps` components once."""
+    return (launches["idct_stream_to_planes"] == 1 and len(by_slot) == n_comps
+            and all(v == 1 for v in by_slot.values()))
 
 
 def end_to_end(dev, data, card, label, one_shot, mp):
@@ -995,21 +1035,20 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
     _, rounds, _ = counted(lambda: H.sync_states(
         sp.cfg, arrs, H.make_ctx(sp.cfg, arrs)))
     rounds = rounds["subseq_pass"]
-    log(f"main path launches: {launches}, idct_stream_to_plane by first "
-        f"slot of the component: {by_slot}; sync_states alone on the same "
+    log(f"main path launches: {launches}, components K3 covered by first "
+        f"slot: {by_slot}; sync_states alone on the same "
         f"image: {rounds} rounds (the blind one included), one K1 launch "
         f"each")
     n_comps = len(T.parse(data).components)
     records_kernels = ("decode_write_emit",) + SUPER_KERNELS
     if not (launches["subseq_pass"] == rounds >= 2
             and launches["decode_write"] == 1
-            and launches["idct_stream_to_plane"] == n_comps
-            and len(by_slot) == n_comps and all(by_slot.values())
+            and k3_once(launches, by_slot, n_comps)
             and not any(launches[k] for k in records_kernels + LANE_KERNELS
                         + SHARDED_KERNELS)):
         raise AssertionError(f"the default path must launch K1 once per "
-                             f"sync round, K2 once and K3 once per "
-                             f"component, and no other kernel: {launches} "
+                             f"sync round, K2 once and K3 once for all "
+                             f"components, and no other kernel: {launches} "
                              f"{by_slot}")
 
     t0 = time.perf_counter()
@@ -1029,15 +1068,15 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
 
     # the records write path, through the same entry points
     tplanes, tlaunches, tby_slot = counted(lambda: decode_tiles(data, dev))
-    log(f"records path launches: {tlaunches}, idct_stream_to_plane by first "
-        f"slot: {tby_slot}; {W.scatter_leftover.lanes} leftover lane(s)")
+    log(f"records path launches: {tlaunches}, components K3 covered by "
+        f"first slot: {tby_slot}; {W.scatter_leftover.lanes} leftover "
+        f"lane(s)")
     if not (tlaunches["subseq_pass"] >= 2 and tlaunches["decode_write"] == 0
             and all(tlaunches[k] == 1 for k in records_kernels)
             and not any(tlaunches[k] for k in LANE_KERNELS + SHARDED_KERNELS)
-            and tlaunches["idct_stream_to_plane"] == n_comps
-            and len(tby_slot) == n_comps and all(tby_slot.values())):
+            and k3_once(tlaunches, tby_slot, n_comps)):
         raise AssertionError(f"the records path must launch K1, K4, K5, K6 "
-                             f"and K3, and not K2, K7 or K8: {tlaunches} "
+                             f"and K3 once, and not K2, K7 or K8: {tlaunches} "
                              f"{tby_slot}")
     check_equal_numpy("12 MP records path vs default path", tplanes, planes)
     log("12 MP decode through the records write path == default path == "
@@ -1101,8 +1140,9 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
     and the DC stage, on the records path; then each path's device busy and
     idle share, the sync loop's device work, and K1's and K2's cycles per
     symbol of the longest lane. Returns {kernel: (ms in the decode, cycles
-    per symbol)} for K1 and K2, and the records path's per-launch times of
-    its kernels inside the decode by kernel symbol."""
+    per symbol)} for K1 and K2, K3's per-launch times inside the default
+    path's decode, and the records path's per-launch times of its kernels
+    inside the decode by kernel symbol."""
     def med(fn):
         return host_ms(fn, dev)
 
@@ -1132,10 +1172,9 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
     comp_slots = tuple((k[1], k[2] * k[3]) for k in sp.comps)
     stages["undelta_dc_values"], dcv = med(
         lambda: DC.undelta_dc_values(cfg, comp_slots, coeffs))
-    stages["idct_stream_to_plane x3"], planes = med(lambda: [
-        I.idct_stream_to_plane(
-            coeffs, qtables[k[6]], sp.num_mcus_x, sp.num_mcus_y,
-            cfg.du_per_mcu, k[1], k[2], k[3], dcv) for k in sp.comps])
+    stages["idct_stream_to_planes (one launch)"], planes = med(
+        lambda: I.idct_stream_to_planes(coeffs, qtables, sp.idct_geometry,
+                                        cfg.du_per_mcu, dcv))
     stages["copy out"], _ = med(
         lambda: [pl.contiguous().cpu().numpy() for pl in planes])
     for name, ms in stages.items():
@@ -1177,7 +1216,7 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
         lambda: pipeline.decode_pipeline(plan.signature, staged["scans"],
                                          qtables),
         decode_ms, ("::subseq_pass_kernel", "::decode_write_kernel",
-                    "::idct_stream_to_plane_kernel"))
+                    "::idct_stream_to_planes_kernel"))
     sm_mhz = busy_sm_clock(dev, lambda: pipeline.decode_pipeline(
         plan.signature, staged["scans"], qtables))
     clocks = f"{sm_mhz:.0f} MHz sampled during decodes, {smi('clocks.max.sm')} max"
@@ -1203,8 +1242,9 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
                                          qtables),
         tiles_decode_ms, ("::subseq_pass_kernel", "::emit_pass_kernel",
                           "::supertiles_kernel", "::expand_supertiles_kernel",
-                          "::idct_stream_to_plane_kernel"))
-    return per_symbol, records_times
+                          "::idct_stream_to_planes_kernel"))
+    return (per_symbol, times.get("::idct_stream_to_planes_kernel", []),
+            records_times)
 
 
 def symbol_escapes(cfg, arrs, ctx, states):
@@ -1443,17 +1483,17 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
     times of the per-lane shape's kernels inside its decode."""
     n_comps = len(T.parse(data).components)
     planes, launches, by_slot = counted(lambda: decode_tiles(data, dev, AUTO))
-    log(f"per-lane path launches: {launches}, idct_stream_to_plane by first "
-        f"slot: {by_slot}; {W.scatter_leftover.lanes} leftover lane(s)")
+    log(f"per-lane path launches: {launches}, components K3 covered by "
+        f"first slot: {by_slot}; {W.scatter_leftover.lanes} leftover "
+        f"lane(s)")
     if not (launches["subseq_pass"] >= 2
             and all(launches[k] == 1
                     for k in ("decode_write_emit",) + LANE_KERNELS)
             and not any(launches[k] for k in ("decode_write",) + SUPER_KERNELS
                         + SHARDED_KERNELS)
-            and launches["idct_stream_to_plane"] == n_comps
-            and len(by_slot) == n_comps and all(by_slot.values())):
+            and k3_once(launches, by_slot, n_comps)):
         raise AssertionError(f"the per-lane path must launch K1, K4, K7, K8 "
-                             f"and K3, and not K2, K5 or K6: {launches} "
+                             f"and K3 once, and not K2, K5 or K6: {launches} "
                              f"{by_slot}")
     check_equal_numpy("sparse 12 MP per-lane path vs default path", planes,
                       T.decode(data, device=dev))
@@ -1480,7 +1520,7 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
               "::expand_supertiles_kernel")),
             ("sparse image, auto = per-lane shape", AUTO,
              ("::emit_pass_kernel", "::tiles_kernel",
-              "::expand_tiles_kernel"))):
+              "::expand_tiles_kernel", "::idct_stream_to_planes_kernel"))):
         T.set_default_tuning(tuning)
         try:
             got = T.decode(data, device=dev)
@@ -1526,15 +1566,19 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
 def phase_k9_any_input(dev: torch.device, seed: int) -> None:
     """K9 against its plain version on made-up planes: coefficients at
     +-32767 and -32768 beside random ones, qtable bytes at and above 128
-    (read as signed int8), block counts that are not multiples of 512."""
+    (read as signed int8), block counts that are not multiples of 512; one
+    plane per launch, then planes of mixed shapes and tables in one
+    launch."""
     rng = np.random.default_rng(seed)
     extremes = np.array([-32768, -32767, -1, 0, 1, 2, 32767], np.int16)
-    for h, w in ((8 * 37, 8 * 23), (8, 40), (768, 4032)):
+    made_up = []
+    for h, w in ((8 * 37, 8 * 23), (8, 40), (768, 4032), (384, 2016)):
         plane = rng.choice(extremes, (h, w))
         plane[:h // 2] = rng.integers(-32768, 32768, (h // 2, w))
         q = rng.integers(128, 256, 64).astype(np.int32)
         q[::3] = rng.integers(0, 128, len(q[::3]))
         pt, qt = (torch.from_numpy(a).to(dev) for a in (plane, q))
+        made_up.append((pt, qt))
         err = max_abs_err(I.dequant_idct_plane(pt, qt),
                           I.dequant_idct_plane_plain(pt, qt))
         sync(dev)
@@ -1543,6 +1587,67 @@ def phase_k9_any_input(dev: torch.device, seed: int) -> None:
         if err:
             raise AssertionError("K9 differs from its plain version on "
                                  "made-up inputs")
+    for group in (made_up, made_up[2:] + made_up[:1]):
+        outs = I.dequant_idct_planes([p for p, _ in group],
+                                     [q for _, q in group])
+        err = max(max_abs_err(o, I.dequant_idct_plane_plain(p, q))
+                  for o, (p, q) in zip(outs, group))
+        sync(dev)
+        log(f"K9 on {len(group)} made-up planes of mixed shapes in one "
+            f"launch ({', '.join(str(tuple(p.shape)) for p, _ in group)}): "
+            f"max_abs_err {err} against the plain version")
+        if err:
+            raise AssertionError("K9 differs from its plain version on "
+                                 "made-up planes in one launch")
+
+
+# made-up geometries of K3: data units per MCU, and per component (off,
+# ssx, ssy, table index)
+STREAM_LAYOUTS = {
+    "4:2:0": (6, ((0, 2, 2, 0), (4, 1, 1, 1), (5, 1, 1, 1))),
+    "4:2:2": (4, ((0, 2, 1, 0), (2, 1, 1, 1), (3, 1, 1, 1))),
+    "4:4:0": (4, ((0, 1, 2, 0), (2, 1, 1, 1), (3, 1, 1, 1))),
+    "4:1:1": (6, ((0, 4, 1, 0), (4, 1, 1, 1), (5, 1, 1, 1))),
+    "4:4:4": (3, ((0, 1, 1, 0), (1, 1, 1, 1), (2, 1, 1, 2))),
+    "gray": (1, ((0, 1, 1, 0),)),
+    "non-interleaved": (1, ((0, 1, 1, 1),)),
+}
+
+
+def phase_k3_any_input(dev: torch.device, seed: int) -> None:
+    """K3 against its plain version on made-up streams: every geometry of
+    STREAM_LAYOUTS, MCU rows of 1, R-1, R and R+1 MCUs (R: the run length
+    for that many data units per MCU, so that rows end ragged, exactly or
+    one past a run), 3 MCU rows; coefficients and DC at +-32767 and -32768
+    beside random ones, table bytes at and above 128 (read as signed int8);
+    all components in one launch, and each alone."""
+    rng = np.random.default_rng(seed)
+    extremes = np.array([-32768, -32767, -1, 0, 1, 2, 32767], np.int16)
+    for name, (dpm, comps) in STREAM_LAYOUTS.items():
+        run_mcus = I.stream_runs(1, 1, dpm)[0]
+        for mcus_x in (1, run_mcus - 1, run_mcus, run_mcus + 1):
+            mcus_y, units = 3, mcus_x * 3 * dpm
+            coeffs = rng.choice(extremes, units * 64)
+            coeffs[::2] = rng.integers(-32768, 32768, units * 32)
+            dcv = rng.choice(extremes, units)
+            dcv[::3] = rng.integers(-32768, 32768, len(dcv[::3]))
+            q = rng.integers(128, 256, (3, 64)).astype(np.int32)
+            q[:, ::3] = rng.integers(0, 128, (3, len(q[0, ::3])))
+            ct, dt, qt = (torch.from_numpy(a).to(dev)
+                          for a in (coeffs, dcv, q))
+            err = 0
+            for sel in (comps,) + tuple((c,) for c in comps):
+                args = (ct, qt, (mcus_x, mcus_y, sel), dpm, dt)
+                err = max([err] + [max_abs_err(a, b) for a, b in zip(
+                    I.idct_stream_to_planes(*args),
+                    I.idct_stream_to_planes_plain(*args))])
+            sync(dev)
+            log(f"K3 on a made-up {name} stream, {mcus_x}x{mcus_y} MCUs "
+                f"(runs of {run_mcus}): max_abs_err {err} against the plain "
+                f"version, all components in one launch and each alone")
+            if err:
+                raise AssertionError(f"K3 differs from its plain version on "
+                                     f"a made-up {name} stream")
 
 
 def phase_sharded_small_streams(dev: torch.device, seed: int) -> None:
@@ -1580,40 +1685,48 @@ def sharded_kernels(dev: torch.device, data: bytes, card: str, mesh):
         f"{st.rows} MCU rows per chunk, frames of {frame_mb:.1f} MB")
     blocks = SEG.decode_staged([st], with_idct=False)
     qtables = st.shards[0]["qtables"]
-    entry = None
-    for comp in st.sp.comps:
-        chunks = blocks[comp[0]]
-        plane, q = chunks[0], qtables[comp[6]]
-        err = max(max_abs_err(I.dequant_idct_plane(b, q),
-                              I.dequant_idct_plane_plain(b, q))
-                  for b in chunks[1:])
+    tables = [qtables[comp[6]] for comp in st.sp.comps]
+    # one shard's chunk: all its planes in one launch, as the path runs it
+    by_shard = [[blocks[comp[0]][d] for comp in st.sp.comps]
+                for d in range(mesh.size)]
+    err = max(max_abs_err(a, b) for chunk in by_shard[1:] for a, b in zip(
+        I.dequant_idct_planes(chunk, tables),
+        I.dequant_idct_planes_plain(chunk, tables)))
+    planes = by_shard[0]
+    _, timing = measure(
+        dev, card, f"K9 dequant_idct_planes, one shard's {len(planes)} "
+        f"planes in one launch "
+        f"({', '.join(str(tuple(p.shape)) for p in planes)}, "
+        f"{sum(p.numel() for p in planes) // 64} blocks)",
+        lambda: I.dequant_idct_planes(planes, tables),
+        lambda: I.dequant_idct_planes_plain(planes, tables),
+        lambda got, ref: max(max_abs_err(a, b) for a, b in zip(got, ref)))
+    if err:
+        raise AssertionError("K9 differs from its plain version on a later "
+                             "shard's chunk")
+    pixels = sum(p.numel() for p in planes)
+    b_ms, b_by = bound(2 * pixels + 64 * 4 * len(planes) + pixels,
+                       pixels * K9_OPS_PER_PIXEL)
+    log(f"  K9 one launch: {2 * pixels / 1e6:.2f} MB in, {pixels / 1e6:.2f} "
+        f"MB out, bound {b_ms:.4f} ms by {b_by}, "
+        f"{pixels * K9_OPS_PER_PIXEL / INT_OPS_PER_S * 1e3:.4f} ms by "
+        f"operations; the other shards' chunks == plain too  [{card}]")
+    entry = dict(
+        name="dequant_idct_planes", route="cuda",
+        source="jpeggpu_tpu_torch/kernels/csrc/idct_blocks.cu",
+        replaces="jpeggpu_tpu/ops/idct_pallas.py:231", bound_ms=b_ms,
+        bound_by=b_by, shapes=[list(p.shape) for p in planes], **timing)
+    # each plane alone, one launch each (as the path launched it before)
+    for comp, plane, q in zip(st.sp.comps, planes, tables):
         _, timing = measure(
-            dev, card, f"K9 dequant_idct_plane component {comp[0]} "
-            f"{tuple(plane.shape)} ({plane.numel() // 64} blocks)",
+            dev, card, f"K9 dequant_idct_plane (one plane alone) component "
+            f"{comp[0]} {tuple(plane.shape)} ({plane.numel() // 64} blocks)",
             lambda: I.dequant_idct_plane(plane, q),
             lambda: I.dequant_idct_plane_plain(plane, q), max_abs_err)
-        if err:
-            raise AssertionError("K9 differs from its plain version on a "
-                                 "later chunk")
-        pixels = plane.numel()
-        b_ms, b_by = bound(2 * pixels + 64 * 4 + pixels,
-                           pixels * K9_OPS_PER_PIXEL)
-        log(f"  K9 component {comp[0]}: {2 * pixels / 1e6:.2f} MB in, "
-            f"{pixels / 1e6:.2f} MB out, bound {b_ms:.4f} ms by {b_by}, "
-            f"{pixels * K9_OPS_PER_PIXEL / INT_OPS_PER_S * 1e3:.4f} ms by "
-            f"operations; the other shards' chunks == plain too")
-        if entry is None:  # luma: the kernel's entry
-            entry = dict(
-                name="dequant_idct_plane", route="cuda",
-                source="jpeggpu_tpu_torch/kernels/csrc/idct_blocks.cu",
-                replaces="jpeggpu_tpu/ops/idct_pallas.py:231",
-                bound_ms=b_ms, bound_by=b_by, shape=list(plane.shape),
-                **timing)
-        else:
-            entry[f"component{comp[0]}"] = dict(
-                shape=list(plane.shape), bound_ms=b_ms, **timing)
-            entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       timing["max_abs_err"])
+        b1, _ = bound(3 * plane.numel() + 64 * 4,
+                      plane.numel() * K9_OPS_PER_PIXEL)
+        entry[f"component{comp[0]}_alone"] = dict(
+            shape=list(plane.shape), bound_ms=b1, **timing)
     return entry
 
 
@@ -1622,20 +1735,19 @@ def phase_sharded_path(dev: torch.device, data: bytes, card: str, mesh,
     """`decode_sharded` at 12 MP over the mesh (segment granularity: the
     scan has 189 restart segments), counted; then the subsequence
     granularity on the same image, whose seams fall inside segments."""
-    n_comps = len(expect)
     planes, launches, by_slot = counted(
         lambda: SEG.decode_sharded(data, mesh))
     log(f"sharded path launches ({mesh.size} shards): {launches} (K1 = the "
-        f"shards' sync rounds, summed), idct_stream_to_plane by slot "
+        f"shards' sync rounds, summed), components K3 covered by slot "
         f"{by_slot}")
-    if not (launches["dequant_idct_plane"] == n_comps * mesh.size
+    if not (launches["dequant_idct_planes"] == mesh.size
             and launches["decode_write"] == mesh.size
             and launches["subseq_pass"] >= 2 * mesh.size
-            and launches["idct_stream_to_plane"] == 0
+            and launches["idct_stream_to_planes"] == 0
             and not any(launches[k] for k in ("decode_write_emit",)
                         + SUPER_KERNELS + LANE_KERNELS)):
         raise AssertionError(f"the sharded path must launch K1, K2 once per "
-                             f"shard and K9 once per component and shard, "
+                             f"shard and K9 once per shard, "
                              f"and no other kernel: {launches}")
     check_equal_numpy("12 MP decode_sharded vs golden", planes, expect)
     log(f"12 MP decode_sharded over {mesh.size} shards on the card == golden "
@@ -1648,8 +1760,9 @@ def phase_sharded_path(dev: torch.device, data: bytes, card: str, mesh,
     log(f"subsequence granularity at 12 MP: subsequence bounds "
         f"{st.shp.bounds}, lanes {st.shp.cfg.lanes} per shard, "
         f"{st.outer_rounds} outer round(s), launches {slaunches}")
-    if slaunches["dequant_idct_plane"] != n_comps * mesh.size:
-        raise AssertionError("the subsequence granularity skipped K9")
+    if slaunches["dequant_idct_planes"] != mesh.size:
+        raise AssertionError("the subsequence granularity must launch K9 "
+                             "once per shard")
     check_equal_numpy("12 MP subsequence granularity vs golden", got, expect)
     log("12 MP subsequence-granular sharded decode == golden")
     return launches, by_slot
@@ -1703,9 +1816,9 @@ def phase_sharded_times(dev: torch.device, data: bytes, card: str, mesh):
         dev, card, "sharded path", lambda: SEG.decode_staged(staged),
         med["sharded, from staged inputs"],
         ("::subseq_pass_kernel", "::decode_write_kernel",
-         "::dequant_idct_plane_kernel"))
+         "::dequant_idct_planes_kernel"))
     dec.cleanup()
-    return times.get("::dequant_idct_plane_kernel", [])
+    return times.get("::dequant_idct_planes_kernel", [])
 
 
 def make_image(seed: int, quality: int, strip_rows: int = 9):
@@ -1738,6 +1851,7 @@ def main() -> int:
     phase_small_streams(dev, args.seed)
     phase_lane_kernels_any_input(dev, args.seed)
     phase_entropy_kernels_any_input(dev, args.seed)
+    phase_k3_any_input(dev, args.seed)
     phase_k9_any_input(dev, args.seed)
     phase_sharded_small_streams(dev, args.seed)
 
@@ -1754,8 +1868,12 @@ def main() -> int:
     entries = phase_kernels(dev, data, card)
     (launches, by_slot, tlaunches, tby_slot, decode_ms,
      tiles_decode_ms) = phase_main_path(dev, data, card)
-    per_symbol, records_times = phase_where_time_goes(
+    per_symbol, k3_times, records_times = phase_where_time_goes(
         dev, data, card, decode_ms, tiles_decode_ms)
+    k3, = (e for e in entries if e["name"] == "idct_stream_to_planes")
+    k3["ms_in_decode"] = k3_times
+    k3["ms_in_decode_records_path"] = records_times.get(
+        "::idct_stream_to_planes_kernel", [])
     for e in entries:
         key = f"::{e['name']}_kernel"
         if key in per_symbol:
@@ -1770,6 +1888,8 @@ def main() -> int:
         f"tile_mode='auto' == golden")
     entries += lane_path_kernels(dev, sparse, card)
     llaunches, lby_slot, lane_times = phase_lane_path(dev, sparse, card)
+    k3["ms_in_decode_lane_path"] = lane_times.get(
+        "::idct_stream_to_planes_kernel", [])
     for e in entries:
         # the records path's kernels inside a real decode (the profiler's,
         # per launch): K4-K6 on the quality-90 image's supertile shape, K4,
@@ -1793,8 +1913,9 @@ def main() -> int:
     k9["ms_in_decode"] = phase_sharded_times(dev, data, card, mesh)
     entries.append(k9)
     for e in entries:
-        # counted by the wrappers during each main path's run, K3 per
-        # component; `launches` is the count on the path that is the
+        # counted by the wrappers during each main path's run (K3's
+        # one-component entries: the components its launches covered);
+        # `launches` is the count on the path that is the
         # kernel's own (K1-K3 the default path, K4-K6 the records path on
         # the quality-90 image, K7-K8 the per-lane path on the sparse one,
         # K9 the sharded path on the quality-90 image)

@@ -10,18 +10,22 @@ imported: a machine with no ``nvcc`` can import the package and run the
 plain versions on CPU tensors.
 
 Nine kernels: the whole sync round (``subseq_pass.cu``), the direct writing
-decode (``decode_write.cu``), the stream -> plane tail
-(``idct_stream.cu``), the records write path: the emitting decode
+decode (``decode_write.cu``), the stream -> planes tail of a scan
+(``idct_stream.cu``, one launch for all its components), the records
+write path: the emitting decode
 (``emit_pass.cu``; it, K1 and K2 decode by the one-lookup symbol table), its
 supertile shape (``supertiles.cu``, ``expand_supertiles.cu``) and its
 per-lane shape for sparse scans (``tiles.cu``, ``expand_tiles.cu``); and
-the plane IDCT of the sharded decode's tail (``idct_blocks.cu``).
+the plane IDCT of the sharded decode's tail (``idct_blocks.cu``, one
+launch for all planes of a shard's chunk).
 
 The wrappers that launch the kernels (and count their launches) live beside
 the plain PyTorch versions in ``ops/huffman.py``, ``ops/write.py`` and
 ``ops/idct.py``; they
 call :func:`get` for the C function, pass ``tensor.data_ptr()`` and
-``torch.cuda.current_stream().cuda_stream``, and raise when the function
+``torch.cuda.current_stream().cuda_stream`` (the IDCT kernels also take a
+descriptor of their planes in host memory, :func:`host_int64`), and raise
+when the function
 returns anything but ``cudaSuccess``. A kernel that fails to build or to
 launch is an error; there is no fallback.
 """
@@ -56,8 +60,9 @@ _KERNELS = {
     "jpeggpu_decode_write": (
         "decode_write.cu", ("huffman_common.cuh",),
         [_P] * 17 + [_U64] + [_I] * 3 + [_P]),
-    "jpeggpu_idct_stream_to_plane": (
-        "idct_stream.cu", ("idct_common.cuh",), [_P] * 4 + [_I] * 6 + [_P]),
+    "jpeggpu_idct_stream_to_planes": (
+        "idct_stream.cu", ("idct_common.cuh", "bulk_copy.cuh"),
+        [_P] * 4 + [_I] + [_P]),
     "jpeggpu_emit_pass": (
         "emit_pass.cu", ("huffman_common.cuh",),
         [_P] * 17 + [_U64] + [_I] * 4 + [_P]),
@@ -70,8 +75,8 @@ _KERNELS = {
         "tiles.cu", ("tile_common.cuh",), [_P] * 7 + [_I] * 3 + [_P]),
     "jpeggpu_expand_tiles": (
         "expand_tiles.cu", ("tile_common.cuh",), [_P] * 5 + [_I] * 3 + [_P]),
-    "jpeggpu_dequant_idct_plane": (
-        "idct_blocks.cu", ("idct_common.cuh",), [_P] * 3 + [_I] * 2 + [_P]),
+    "jpeggpu_dequant_idct_planes": (
+        "idct_blocks.cu", ("idct_common.cuh",), [_P, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -136,6 +141,13 @@ def get(fn_name: str):
         if not _functions:
             _build_and_load()
         return _functions[fn_name]
+
+
+def host_int64(values) -> ctypes.Array:
+    """A launch descriptor in host memory: ``values`` as a C int64 array,
+    whose address (``ctypes.addressof``) the launch functions take; the
+    caller keeps it alive for the call."""
+    return (ctypes.c_int64 * len(values))(*values)
 
 
 def check(err: int, what: str) -> None:

@@ -1,97 +1,280 @@
-// K3: stream-order coefficients of one component -> its uint8 pixel plane.
+// K3: stream-order coefficients of a scan -> the uint8 pixel planes of its
+// components, all of them in one launch.
 //
 // Replaces the Pallas kernel `_stream_idct_kernel` behind
-// `jpeggpu_tpu/ops/idct_pallas.py: idct_stream_to_plane`. One launch per
-// component does the de-interleave (it reads the component's data units
-// where the MCU-interleaved stream has them), splices the un-deltaed DC
-// from the side vector into slot 0, dequantises with the table bytes read
-// as signed int8 and the product wrapped to int16, runs the column and the
-// row pass of the fixed-point AAN transform (every pass result wrapped to
-// int16), adds 128, clamps and stores 8x8 pixels at the plane's pitch.
+// `jpeggpu_tpu/ops/idct_pallas.py: idct_stream_to_plane`, which the
+// reference launches once per component; here one launch covers up to four
+// components of the scan (a by-value descriptor per component: its slots in
+// the MCU, its sampling factors, its table and its plane). For every data
+// unit it does the de-interleave (it reads the unit where the
+// MCU-interleaved stream has it), splices the un-deltaed DC from the side
+// vector into slot 0, dequantises with the table bytes read as signed int8
+// and the product wrapped to int16, runs the column and the row pass of
+// the fixed-point AAN transform (every pass result wrapped to int16), adds
+// 128, clamps and stores 8x8 pixels at the plane's pitch.
 //
-// What bounds it on an H100: bytes. Each coefficient is read once (2 B)
-// and each pixel written once (1 B), against ~40 integer operations per
-// pixel: 3 bytes per pixel at 3.35 TB/s is reached long before the ALUs
-// are. The design therefore moves every byte once and in wide accesses:
-// one thread owns one data unit, reads its 128 contiguous bytes as eight
-// 16-byte loads, keeps all 64 values in registers through both passes (no
-// shared memory, no intermediate in device memory) and stores eight 8-byte
-// rows; consecutive threads own horizontally adjacent blocks of the plane,
-// so a warp's stores of one pixel row are one contiguous 256-byte run.
-// The TPU kernel's lo/hi int32 byte packing has no counterpart here.
+// What bounds it on an H100: bytes, with the integer pipes close behind.
+// Each coefficient is read once (2 B) and each pixel written once (1 B),
+// against ~20 integer operations per pixel, which the card's 64 integer
+// lanes per SM and clock (for adds and shifts, as many again for
+// multiplies) do in about as long as the bytes take. The design:
 //
-// The 8-point pass, the level shift and the clamp live in idct_common.cuh,
-// shared with K9 (idct_blocks.cu).
+// - Work unit: a run of R consecutive MCUs of one MCU row (R a power of
+//   two with R * du_per_mcu <= 128, chosen by the host; the last run of a
+//   row takes the rest), across all listed components. Its coefficients
+//   are one contiguous range of the stream, R * du_per_mcu * 128 bytes.
+// - Staging: persistent blocks (as many as fit on the card) walk the runs;
+//   each stages a run in shared memory with one 1-D bulk copy
+//   (bulk_copy.cuh) issued by one thread and completed on an mbarrier, in a
+//   ring of two stages, so that the next run loads while this one is
+//   transformed. No thread spends a register or an instruction on the
+//   loads, and the copy reads every line whole, once.
+// - Transform: one thread per data unit. Threads take the run's units in
+//   plane order (consecutive threads: horizontally adjacent blocks of one
+//   component), so that a warp's stores of one pixel row are contiguous
+//   runs of 8-byte stores, whole sectors. The thread -> data unit mapping
+//   (three integer divisions) is worked out once per block for a whole run
+//   and again only for a row's shorter last run. A unit's 128 bytes sit at
+//   a 128-byte stride in shared memory, so eight lanes reading the same
+//   16-byte chunk would hit one bank group; each lane reads its chunks in
+//   the order k ^ (lane & 7) instead (no conflict within a quarter warp)
+//   and swaps them back into order with three rounds of selects.
+// - The level shift rides on the row pass's rounding bias and the clamp and
+//   pack are one instruction per two pixels (idct_common.cuh).
+//
+// Measured against two other designs on the card (the same kernel with
+// direct 16-byte loads from device memory and no staging; each thread
+// staging its own unit with a 128-byte bulk copy into a padded place, no
+// reordering), this one was the fastest in a decode.
+//
+// The 8-point pass, the level shift, the clamp and the block transform live
+// in idct_common.cuh, shared with K9 (idct_blocks.cu).
 
+#include "bulk_copy.cuh"
 #include "idct_common.cuh"
 
 namespace jpeggpu {
 
-constexpr int kIdctBlock = 128;
+constexpr int kMaxComps = 4;
+constexpr int kRunStages = 2;
+constexpr int kMaxRunUnits = 128;  // threads of a block at most
 
-__global__ void __launch_bounds__(kIdctBlock)
-idct_stream_to_plane_kernel(const int16_t* __restrict__ coeffs,
-                            const int16_t* __restrict__ dc,
-                            const int32_t* __restrict__ qtable,
-                            uint8_t* __restrict__ plane, int mcus_x,
-                            int mcus_y, int du_per_mcu, int off, int ssx,
-                            int ssy) {
-  __shared__ uint32_t q[64];  // signed-int8 reading of the table bytes
-  for (int i = threadIdx.x; i < 64; i += blockDim.x) {
-    q[i] = qvalue(qtable[i]);
+struct StreamComp {
+  uint8_t* plane;
+  int off, ssx, ssy, qidx;
+  int first;  // per MCU of a run: data units of the components listed before
+};
+
+struct StreamRuns {
+  const int16_t* coeffs;
+  const int16_t* dc;
+  const int32_t* qtables;
+  StreamComp comp[kMaxComps];
+  int n_comps;
+  int units;  // data units per MCU over the listed components
+  int mcus_x, du_per_mcu, run_mcus, runs_per_row, n_runs;
+};
+
+struct Run {
+  int my, mx0, n;  // MCU row, first MCU column, MCUs
+};
+
+__device__ __forceinline__ Run run_at(const StreamRuns& a, int run) {
+  Run r;
+  r.my = run / a.runs_per_row;
+  r.mx0 = (run - r.my * a.runs_per_row) * a.run_mcus;
+  r.n = min(a.run_mcus, a.mcus_x - r.mx0);
+  return r;
+}
+
+// Thread `tid`'s data unit of a run of n MCUs, in plane order: its
+// component c, its slot du in the run's stretch of the stream, and its
+// block row sy (in the MCU row) and block column bx (in the run).
+struct Unit {
+  int c, du, sy, bx;
+};
+
+__device__ __forceinline__ Unit unit_of(const StreamRuns& a, int n, int tid) {
+  Unit u;
+  u.c = 0;
+#pragma unroll
+  for (int j = 1; j < kMaxComps; ++j) {
+    if (j < a.n_comps && tid >= n * a.comp[j].first) u.c = j;
   }
-  __syncthreads();
-
-  const int blocks_x = mcus_x * ssx;
-  const int blocks_y = mcus_y * ssy;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= blocks_x * blocks_y) return;
-  const int by = idx / blocks_x;
-  const int bx = idx - by * blocks_x;
-  const int my = by / ssy, sy = by - my * ssy;
-  const int mxi = bx / ssx, sx = bx - mxi * ssx;
-  const int64_t du =
-      static_cast<int64_t>(my * mcus_x + mxi) * du_per_mcu + off + sy * ssx + sx;
-
-  uint32_t v[64];
-  const int4* src = reinterpret_cast<const int4*>(coeffs + du * 64);
+  StreamComp cc = a.comp[0];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int4 w = __ldg(src + k);
-    const int32_t parts[4] = {w.x, w.y, w.z, w.w};
+  for (int j = 1; j < kMaxComps; ++j) {
+    if (j == u.c) cc = a.comp[j];
+  }
+  const int local = tid - n * cc.first;
+  const int w = n * cc.ssx;  // the run's blocks in one block row
+  u.sy = local / w;
+  u.bx = local - u.sy * w;
+  const int mx = u.bx / cc.ssx;
+  const int sx = u.bx - mx * cc.ssx;
+  u.du = mx * a.du_per_mcu + cc.off + u.sy * cc.ssx + sx;
+  return u;
+}
+
+__device__ __forceinline__ void load_run(const StreamRuns& a, int run,
+                                         uint8_t* dst, uint64_t* bar) {
+  const Run r = run_at(a, run);
+  const uint32_t bytes = static_cast<uint32_t>(r.n * a.du_per_mcu) * 128u;
+  mbar_expect_tx(bar, bytes);
+  bulk_load(dst,
+            a.coeffs + (static_cast<int64_t>(r.my) * a.mcus_x + r.mx0) *
+                           a.du_per_mcu * 64,
+            bytes, bar);
+}
+
+// rows[k] holds row k ^ s: swap them back into order
+__device__ __forceinline__ void unscramble(int4 (&rows)[8], int s) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[8 * k + 2 * j] = wrap16(static_cast<uint32_t>(parts[j]));
-      v[8 * k + 2 * j + 1] = sra(static_cast<uint32_t>(parts[j]), 16);
+  for (int b = 1; b < 8; b <<= 1) {
+    const bool flip = s & b;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j & b) continue;
+      const int4 lo = rows[j], hi = rows[j | b];
+      rows[j] = flip ? hi : lo;
+      rows[j | b] = flip ? lo : hi;
     }
   }
-  v[0] = static_cast<uint32_t>(static_cast<int32_t>(dc[du]));
-#pragma unroll
-  for (int i = 0; i < 64; ++i) v[i] = wrap16(v[i] * q[i]);
-  idct_block(v);
+}
 
-  const int64_t pitch = static_cast<int64_t>(blocks_x) * 8;
-  uint8_t* dst = plane + (static_cast<int64_t>(by) * 8) * pitch + bx * 8;
+// the transform of one data unit from its rows; stores its pixels
+__device__ __forceinline__ void unit_pixels(const StreamRuns& a, const Run& r,
+                                            const Unit& u, int4 (&rows)[8],
+                                            const uint32_t* q) {
+  StreamComp cc = a.comp[0];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    *reinterpret_cast<uint2*>(dst + i * pitch) = pixel_row(v, i);
+  for (int j = 1; j < kMaxComps; ++j) {
+    if (j == u.c) cc = a.comp[j];
+  }
+  uint32_t v[64];
+  unpack_rows(rows, v);
+  const int64_t gdu =
+      (static_cast<int64_t>(r.my) * a.mcus_x + r.mx0) * a.du_per_mcu + u.du;
+  v[0] = static_cast<uint32_t>(static_cast<int32_t>(a.dc[gdu]));
+  const int64_t pitch = static_cast<int64_t>(a.mcus_x) * cc.ssx * 8;
+  uint8_t* dst = cc.plane +
+                 static_cast<int64_t>((r.my * cc.ssy + u.sy) * 8) * pitch +
+                 static_cast<int64_t>(r.mx0 * cc.ssx + u.bx) * 8;
+  dequant_idct_store(v, q, dst, pitch);
+}
+
+__global__ void __launch_bounds__(kMaxRunUnits)
+idct_stream_to_planes_kernel(const StreamRuns a) {
+  extern __shared__ __align__(128) uint8_t stage[];
+  __shared__ uint64_t full[kRunStages];
+  __shared__ __align__(16) uint32_t q[kMaxComps][64];
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int c = 0; c < kMaxComps; ++c) {
+    if (c >= a.n_comps) break;
+    for (int i = tid; i < 64; i += blockDim.x) {
+      q[c][i] = qvalue(a.qtables[a.comp[c].qidx * 64 + i]);
+    }
+  }
+  const int stage_bytes = a.run_mcus * a.du_per_mcu * 128;
+  if (tid == 0) {
+    for (int s = 0; s < kRunStages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < kRunStages; ++s) {
+      const int run = blockIdx.x + s * gridDim.x;
+      if (run < a.n_runs) load_run(a, run, stage + s * stage_bytes, &full[s]);
+    }
+  }
+  // a whole run's units are the same for every run: worked out once
+  const Unit whole = unit_of(a, a.run_mcus, tid);
+  const int lane8 = tid & 7;
+  int i = 0;
+  for (int run = blockIdx.x; run < a.n_runs; run += gridDim.x, ++i) {
+    const int slot = i % kRunStages;
+    const Run r = run_at(a, run);
+    mbar_wait(&full[slot], (i / kRunStages) & 1);
+    if (tid < r.n * a.units) {
+      const Unit u = r.n == a.run_mcus ? whole : unit_of(a, r.n, tid);
+      const uint8_t* src = stage + slot * stage_bytes + u.du * 128;
+      int4 rows[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        rows[k] = *reinterpret_cast<const int4*>(src + ((k ^ lane8) << 4));
+      }
+      unscramble(rows, lane8);
+      unit_pixels(a, r, u, rows, q[u.c]);
+    }
+    __syncthreads();  // every read of this slot is done
+    if (tid == 0) {
+      const int next = run + kRunStages * gridDim.x;
+      if (next < a.n_runs) {
+        fence_proxy_async();
+        load_run(a, next, stage + slot * stage_bytes, &full[slot]);
+      }
+    }
   }
 }
 
 }  // namespace jpeggpu
 
-extern "C" int jpeggpu_idct_stream_to_plane(
-    const void* coeffs, const void* dc, const void* qtable, void* plane,
-    int mcus_x, int mcus_y, int du_per_mcu, int off, int ssx, int ssy,
-    void* stream) {
+// desc (host memory, int64): mcus_x, du_per_mcu, units, run_mcus,
+// runs_per_row, n_runs, threads; then per component: plane pointer, off,
+// ssx, ssy, table index, first. The division into runs is the host's
+// (ops/idct.py: stream_runs); the grid is as many blocks as fit on the
+// card at once, at most one per run.
+extern "C" int jpeggpu_idct_stream_to_planes(const void* coeffs,
+                                             const void* dc,
+                                             const void* qtables,
+                                             const int64_t* desc,
+                                             int n_comps, void* stream) {
   using namespace jpeggpu;
-  const int units = mcus_x * ssx * mcus_y * ssy;
-  const dim3 block(kIdctBlock);
-  const dim3 grid((units + kIdctBlock - 1) / kIdctBlock);
-  idct_stream_to_plane_kernel<<<grid, block, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(coeffs), static_cast<const int16_t*>(dc),
-      static_cast<const int32_t*>(qtable), static_cast<uint8_t*>(plane),
-      mcus_x, mcus_y, du_per_mcu, off, ssx, ssy);
+  if (n_comps < 1 || n_comps > kMaxComps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  StreamRuns a{};
+  a.coeffs = static_cast<const int16_t*>(coeffs);
+  a.dc = static_cast<const int16_t*>(dc);
+  a.qtables = static_cast<const int32_t*>(qtables);
+  a.n_comps = n_comps;
+  a.mcus_x = static_cast<int>(desc[0]);
+  a.du_per_mcu = static_cast<int>(desc[1]);
+  a.units = static_cast<int>(desc[2]);
+  a.run_mcus = static_cast<int>(desc[3]);
+  a.runs_per_row = static_cast<int>(desc[4]);
+  a.n_runs = static_cast<int>(desc[5]);
+  const int threads = static_cast<int>(desc[6]);
+  for (int c = 0; c < n_comps; ++c) {
+    const int64_t* d = desc + 7 + 6 * c;
+    a.comp[c].plane = reinterpret_cast<uint8_t*>(d[0]);
+    a.comp[c].off = static_cast<int>(d[1]);
+    a.comp[c].ssx = static_cast<int>(d[2]);
+    a.comp[c].ssy = static_cast<int>(d[3]);
+    a.comp[c].qidx = static_cast<int>(d[4]);
+    a.comp[c].first = static_cast<int>(d[5]);
+  }
+  if (a.n_runs == 0) return 0;
+  if (threads < 32 || threads > kMaxRunUnits || threads % 32 ||
+      a.run_mcus * a.units > threads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem =
+      static_cast<size_t>(kRunStages) * a.run_mcus * a.du_per_mcu * 128;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, idct_stream_to_planes_kernel, threads, smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = min(a.n_runs, max(1, per_sm) * sms);
+  idct_stream_to_planes_kernel<<<grid, threads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

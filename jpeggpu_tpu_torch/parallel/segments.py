@@ -29,7 +29,8 @@ Both end in the same tail: the frames merge by ``psum_scatter`` into
 MCU-row chunks (the supports are disjoint, so the sum is the ordered
 gather), DC un-delta crosses chunk seams through one ``all_gather`` of
 per-component tail sums, and each shard runs the de-interleave and the
-plane IDCT (kernel K9, ``ops.idct.dequant_idct_plane``) on its own rows.
+plane IDCT (kernel K9, ``ops.idct.dequant_idct_planes``, one launch for
+all planes of its rows) on its own rows.
 The planes come back row-sharded. Multi-scan images go scan by scan.
 """
 
@@ -47,7 +48,7 @@ from .. import convert
 from ..errors import NotSupported
 from ..ops.huffman import (ScanConfig, decode_scan, decode_scan_from_states,
                            make_ctx, symbol_offsets, sync_states)
-from ..ops.idct import dequant_idct_plane
+from ..ops.idct import dequant_idct_planes
 from ..ops.transpose import deinterleave
 from ..pipeline import (DecodePlan, ScanPlanStatic, _bucket, _destuff_host,
                         build_plan)
@@ -419,10 +420,11 @@ def _tail_chunks(st: ShardedScan, with_idct: bool,
     for chunk, shard in zip(chunks, st.shards):
         planes = deinterleave(chunk, cfg.du_per_mcu, sp.num_mcus_x, st.rows,
                               t_comps)
-        for i, (plane, c) in enumerate(zip(planes, sp.comps)):
-            if with_idct:
-                with _on(plane.device):
-                    plane = dequant_idct_plane(plane, shard["qtables"][c[6]])
+        if with_idct:
+            with _on(chunk.device):
+                planes = dequant_idct_planes(
+                    planes, [shard["qtables"][c[6]] for c in sp.comps])
+        for i, plane in enumerate(planes):
             blocks[i].append(plane)
     return blocks
 

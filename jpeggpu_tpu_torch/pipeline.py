@@ -5,7 +5,8 @@ lane count is rounded up to a shape bucket; the padding is inert (lane
 validity is data-driven, see ``ops.huffman.make_ctx``). The device chain is
 
   sync_states (K1 per round) -> symbol_offsets -> decode_write (K2)
-  -> undelta_dc_values -> idct_stream_to_plane (K3 per component) -> crop
+  -> undelta_dc_values -> idct_stream_to_planes (K3, once per scan for all
+  its components) -> crop
 
 and runs eagerly on the device that holds the staged inputs. Under a plan
 built with ``Tuning(write_mode="tiles")`` the write stage is the records
@@ -33,7 +34,7 @@ from .errors import OutOfHostMemory
 from .ops.dc import undelta_dc_values
 from .ops.huffman import (SYMTAB_BITS, ScanArrays, ScanConfig, _emit_cap,
                           decode_scan)
-from .ops.idct import idct_stream_to_plane
+from .ops.idct import idct_stream_to_planes
 from .ops.write import resolve_tile_mode
 from .reader import JpegStream, Scan, num_mcus_in_segment, parse
 from .tables import pack_huffman_tables
@@ -71,6 +72,13 @@ class ScanPlanStatic:
     # per scan component: (component_idx, off_in_mcu, ss_eff_x, ss_eff_y,
     #                      data_size_x, data_size_y, qtable_idx)
     comps: Tuple[Tuple[int, int, int, int, int, int, int], ...]
+
+    @property
+    def idct_geometry(self):
+        """The scan as ``ops.idct.idct_stream_to_planes`` takes it:
+        ``(num_mcus_x, num_mcus_y, ((off, ssx, ssy, qtable_idx), ...))``."""
+        return (self.num_mcus_x, self.num_mcus_y,
+                tuple((c[1], c[2], c[3], c[6]) for c in self.comps))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,10 +306,10 @@ def decode_pipeline(signature: PlanSignature, scan_arrays: List[ScanArrays],
         # DC un-delta as a side vector: the stream -> plane kernel takes
         # slot 0 from it, so the DC stage never rewrites the stream
         dcv = undelta_dc_values(cfg, comp_slots, coeffs, dc=dcd)
-        for c in sp.comps:
-            pix[c[0]] = idct_stream_to_plane(
-                coeffs, qtables[c[6]], sp.num_mcus_x, sp.num_mcus_y,
-                cfg.du_per_mcu, c[1], c[2], c[3], dcv)
+        planes = idct_stream_to_planes(coeffs, qtables, sp.idct_geometry,
+                                       cfg.du_per_mcu, dcv)
+        for c, plane in zip(sp.comps, planes):
+            pix[c[0]] = plane
     return tuple(pix[ci][:size_y, :size_x]
                  for ci, (size_x, size_y) in enumerate(signature.comp_sizes))
 

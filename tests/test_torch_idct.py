@@ -1,5 +1,6 @@
 """PyTorch port, tail of the decode: DC un-delta and kernel K3
-(idct_stream_to_plane) in its plain version on the CPU.
+(idct_stream_to_planes, one launch per scan on the card, and its
+one-component call idct_stream_to_plane) in its plain version on the CPU.
 
 (a) Against the JAX package on one stream (420_rst2 of the shared test
 image): the same coefficient stream, DC vector and quantisation table go
@@ -9,6 +10,9 @@ it on the CPU) for the luma component, and through ``deinterleave`` +
 ``dequant_idct_plane`` for the chroma components.
 (b) Against the numpy golden decoder over a matrix of sampling layouts, from
 golden's own coefficient stream, so that the tail is checked alone.
+(c) K3's division of a scan into runs (the host's ``stream_runs`` and
+``comp_firsts``, read with the kernel's arithmetic) covers every data unit
+of the listed components exactly once, at its place in its plane.
 
 Tolerance: none (integer arithmetic), every comparison is
 ``np.array_equal``.
@@ -82,6 +86,106 @@ def test_tail_matches_golden(test_image, name):
                                   expect_planes[c[0]])
 
 
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_stream_to_planes_matches_golden(test_image, name):
+    """idct_stream_to_planes (plain) on the raw stream + DC vector, all the
+    components of a scan in one call, == golden.decode's planes."""
+    data = encode(test_image, EncodeSpec(**LAYOUTS[name]))
+    plan, scans = _golden_scans(data)
+    expect_planes = golden.decode(data)
+    qt = torch.from_numpy(plan.stream.qtables.astype(np.int32))
+    for scan, sp, raw in scans:
+        coeffs = torch.from_numpy(raw.copy())
+        comp_slots = tuple((c[1], c[2] * c[3]) for c in sp.comps)
+        dcv = tdc.undelta_dc_values(sp.cfg, comp_slots, coeffs)
+        planes = tidct.idct_stream_to_planes(coeffs, qt, sp.idct_geometry,
+                                             sp.cfg.du_per_mcu, dcv)
+        assert len(planes) == len(sp.comps)
+        for c, plane in zip(sp.comps, planes):
+            assert plane.dtype == torch.uint8 and plane.shape == (c[5], c[4])
+            size_x, size_y = plan.signature.comp_sizes[c[0]]
+            assert np.array_equal(plane[:size_y, :size_x].numpy(),
+                                  expect_planes[c[0]])
+
+
+# per layout: data units per MCU and (off, ssx, ssy, qidx) per component
+_RUN_GEOMETRIES = {
+    "420": (6, ((0, 2, 2, 0), (4, 1, 1, 1), (5, 1, 1, 1))),
+    "422": (4, ((0, 2, 1, 0), (2, 1, 1, 1), (3, 1, 1, 1))),
+    "440": (4, ((0, 1, 2, 0), (2, 1, 1, 1), (3, 1, 1, 1))),
+    "411": (6, ((0, 4, 1, 0), (4, 1, 1, 1), (5, 1, 1, 1))),
+    "444": (3, ((0, 1, 1, 0), (1, 1, 1, 1), (2, 1, 1, 2))),
+    "gray_or_non_interleaved": (1, ((0, 1, 1, 1),)),
+    "420_luma_alone": (6, ((0, 2, 2, 0),)),
+    "420_chroma_alone": (6, ((5, 1, 1, 1),)),
+    "four_components": (10, ((0, 2, 2, 0), (4, 2, 1, 1), (6, 1, 2, 2),
+                             (8, 2, 1, 3))),
+}
+
+
+def _run_units(run, geometry, du_per_mcu):
+    """The data units one K3 run transforms, thread by thread, with the
+    kernel's arithmetic (``idct_stream.cu``: ``run_at``, ``unit_of``) over
+    the host's division (``stream_runs``, ``comp_firsts``): per thread
+    (component index, data unit in the stream, block row and block column
+    in the component's plane)."""
+    num_mcus_x, num_mcus_y, comps = geometry
+    run_mcus, per_row, _ = tidct.stream_runs(num_mcus_x, num_mcus_y,
+                                             du_per_mcu)
+    my, rx = divmod(run, per_row)
+    mx0 = rx * run_mcus
+    n = min(run_mcus, num_mcus_x - mx0)
+    first, units = tidct.comp_firsts(comps)
+    out = []
+    for tid in range(n * units):
+        c = max(j for j in range(len(comps)) if tid >= n * first[j])
+        off, ssx, ssy, _ = comps[c]
+        sy, bx = divmod(tid - n * first[c], n * ssx)
+        mx, sx = divmod(bx, ssx)
+        du = mx * du_per_mcu + off + sy * ssx + sx
+        out.append((c, (my * num_mcus_x + mx0) * du_per_mcu + du,
+                    my * ssy + sy, mx0 * ssx + bx))
+    return out
+
+
+@pytest.mark.parametrize("layout", list(_RUN_GEOMETRIES))
+def test_stream_runs_cover_each_unit_once(layout):
+    """Every data unit of the listed components is taken by exactly one
+    thread of one run, at its de-interleaved place, for MCU rows of 1, R-1,
+    R and R+1 MCUs (R: the run length); runs fit one block of RUN_UNITS
+    threads and never cross an MCU row."""
+    du_per_mcu, comps = _RUN_GEOMETRIES[layout]
+    run_mcus = tidct.stream_runs(1, 1, du_per_mcu)[0]
+    assert run_mcus * du_per_mcu <= tidct.RUN_UNITS < 2 * run_mcus * du_per_mcu
+    num_mcus_y = 3
+    for num_mcus_x in (1, run_mcus - 1, run_mcus, run_mcus + 1):
+        if num_mcus_x < 1:
+            continue
+        geometry = (num_mcus_x, num_mcus_y, comps)
+        _, per_row, n_runs = tidct.stream_runs(num_mcus_x, num_mcus_y,
+                                               du_per_mcu)
+        assert n_runs == per_row * num_mcus_y
+        seen = {}
+        for run in range(n_runs):
+            units = _run_units(run, geometry, du_per_mcu)
+            assert len(units) <= tidct.RUN_UNITS
+            rows = {r // comps[c][2] for c, _, r, _ in units}
+            assert len(rows) == 1  # one MCU row
+            for c, du, row, col in units:
+                assert (c, du) not in seen
+                seen[(c, du)] = (row, col)
+        expect = {}
+        for c, (off, ssx, ssy, _) in enumerate(comps):
+            for my in range(num_mcus_y):
+                for mx in range(num_mcus_x):
+                    for sy in range(ssy):
+                        for sx in range(ssx):
+                            du = ((my * num_mcus_x + mx) * du_per_mcu + off
+                                  + sy * ssx + sx)
+                            expect[(c, du)] = (my * ssy + sy, mx * ssx + sx)
+        assert seen == expect
+
+
 def test_dc_wraps_like_int16():
     """The segmented cumsum wraps to int16 as the reference's int16 scan."""
     from jpeggpu_tpu_torch.ops.huffman import ScanConfig
@@ -139,12 +243,42 @@ def test_dc_values_match_jax(reference_stream):
     assert np.array_equal(r["dcv"], np.asarray(expect))
 
 
-@pytest.mark.parametrize("comp", [0, 1, 2])
-def test_stream_to_plane_matches_jax(reference_stream, comp):
+@pytest.fixture(scope="module")
+def jax_planes(reference_stream):
+    """The JAX package's planes of the three components: the Pallas kernel
+    itself (interpret mode) for luma, ``deinterleave`` +
+    ``dequant_idct_plane`` for the chroma components."""
     from jpeggpu_tpu.ops.idct import dequant_idct_plane
     from jpeggpu_tpu.ops.idct_pallas import idct_stream_to_plane
     from jpeggpu_tpu.ops.transpose import deinterleave as jdeinterleave
 
+    r = reference_stream
+    sp = r["sp"]
+    cfg = sp.cfg
+    out = []
+    for comp, c in enumerate(sp.comps):
+        q = r["plan"].stream.qtables[c[6]].astype(np.int32)
+        if comp == 0:
+            expect = idct_stream_to_plane(
+                jnp.asarray(r["raw"]), jnp.asarray(q), sp.num_mcus_x,
+                sp.num_mcus_y, cfg.du_per_mcu, c[1], c[2], c[3],
+                dc_override=jnp.asarray(r["dcv"]))
+        else:
+            spliced = r["raw"].copy()
+            spliced[::64] = r["dcv"]
+
+            class _Cfg:
+                du_per_mcu = cfg.du_per_mcu
+
+            plane, = jdeinterleave(_Cfg, jnp.asarray(spliced), sp.num_mcus_x,
+                                   sp.num_mcus_y, [(c[1], c[2], c[3], 0)])
+            expect = dequant_idct_plane(plane, jnp.asarray(q))
+        out.append(np.asarray(expect))
+    return out
+
+
+@pytest.mark.parametrize("comp", [0, 1, 2])
+def test_stream_to_plane_matches_jax(reference_stream, jax_planes, comp):
     r = reference_stream
     sp = r["sp"]
     cfg = sp.cfg
@@ -154,23 +288,21 @@ def test_stream_to_plane_matches_jax(reference_stream, comp):
         torch.from_numpy(r["raw"].copy()), torch.from_numpy(q),
         sp.num_mcus_x, sp.num_mcus_y, cfg.du_per_mcu, c[1], c[2], c[3],
         torch.from_numpy(r["dcv"])).numpy()
-    if comp == 0:
-        # the Pallas kernel itself, in interpret mode
-        expect = idct_stream_to_plane(
-            jnp.asarray(r["raw"]), jnp.asarray(q), sp.num_mcus_x,
-            sp.num_mcus_y, cfg.du_per_mcu, c[1], c[2], c[3],
-            dc_override=jnp.asarray(r["dcv"]))
-    else:
-        spliced = r["raw"].copy()
-        spliced[::64] = r["dcv"]
+    assert np.array_equal(got, jax_planes[comp])
 
-        class _Cfg:
-            du_per_mcu = cfg.du_per_mcu
 
-        plane, = jdeinterleave(_Cfg, jnp.asarray(spliced), sp.num_mcus_x,
-                               sp.num_mcus_y, [(c[1], c[2], c[3], 0)])
-        expect = dequant_idct_plane(plane, jnp.asarray(q))
-    assert np.array_equal(got, np.asarray(expect))
+def test_stream_to_planes_matches_jax(reference_stream, jax_planes):
+    """All three components in one idct_stream_to_planes call (K3's one
+    launch per scan on the card) == the JAX package's planes."""
+    r = reference_stream
+    sp = r["sp"]
+    got = tidct.idct_stream_to_planes(
+        torch.from_numpy(r["raw"].copy()),
+        torch.from_numpy(r["plan"].stream.qtables.astype(np.int32)),
+        sp.idct_geometry, sp.cfg.du_per_mcu, torch.from_numpy(r["dcv"]))
+    assert len(got) == len(jax_planes) == 3
+    for a, b in zip(got, jax_planes):
+        assert np.array_equal(a.numpy(), b)
 
 
 def test_deinterleave_matches_golden(reference_stream):

@@ -342,10 +342,20 @@ def test_wrappers_refuse_other_devices(data_420_rst2):
         tidct.dequant_idct_plane(
             torch.zeros((8, 8), dtype=torch.int16, device="meta"),
             staged["qtables"][0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tidct.idct_stream_to_planes(
+            torch.zeros(64, dtype=torch.int16, device="meta"),
+            staged["qtables"], (1, 1, ((0, 1, 1, 0),)), 1,
+            torch.zeros(1, dtype=torch.int16))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tidct.dequant_idct_planes(
+            [torch.zeros((8, 16), dtype=torch.int16, device="meta")] * 2,
+            [staged["qtables"][0]] * 2)
     assert TH.subseq_pass.launches == 0 and TH.decode_write.launches == 0
     assert TH.decode_write_emit.launches == 0
-    assert tidct.idct_stream_to_plane.launches == 0
-    assert tidct.dequant_idct_plane.launches == 0
+    # the one-component and one-plane calls launch through these two
+    assert tidct.idct_stream_to_planes.launches == 0
+    assert tidct.dequant_idct_planes.launches == 0
 
 
 @pytest.fixture(scope="module")

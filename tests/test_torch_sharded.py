@@ -1,6 +1,7 @@
 """PyTorch port, the sharded decode of one image (``parallel/segments.py``,
-segment and subsequence granularity) and kernel K9 (``dequant_idct_plane``)
-in its plain version on the CPU.
+segment and subsequence granularity) and kernel K9 (``dequant_idct_planes``,
+one launch per shard on the card, and its one-plane call
+``dequant_idct_plane``) in its plain version on the CPU.
 
 Against the JAX package: K9's plain version against its Pallas kernel in
 interpret mode; the shard plans and the staged shard inputs, field by field
@@ -145,7 +146,46 @@ def test_dequant_idct_plane_matches_pallas_kernel(case, k9_reference):
     assert np.array_equal(got.numpy(), expect)
     assert np.array_equal(expect, _from_blocks(
         dequant_idct_blocks(np, _to_blocks(plane), q), h, w))
-    assert tidct.dequant_idct_plane.launches == 0
+    assert tidct.dequant_idct_planes.launches == 0
+
+
+def test_dequant_idct_planes_matches_pallas_kernel(k9_reference):
+    """Both K9 cases, of different shapes, in one ``dequant_idct_planes``
+    call (K9's one launch per shard on the card) == the JAX package's
+    Pallas kernel in interpret mode; a third plane in the same call, with
+    its own table, == the numpy transform."""
+    q, planes = _k9_planes()
+    q2 = np.random.default_rng(43).integers(0, 256, 64).astype(np.int32)
+    extra = planes["random"][:24, :40]
+    got = tidct.dequant_idct_planes(
+        [torch.from_numpy(p) for p in (*planes.values(), extra)],
+        [torch.from_numpy(q)] * len(planes) + [torch.from_numpy(q2)])
+    assert len(got) == 3
+    for case, out in zip(planes, got):
+        assert out.dtype == torch.uint8
+        assert np.array_equal(out.numpy(), k9_reference[case].astype(np.uint8))
+    assert np.array_equal(got[2].numpy(), _from_blocks(
+        dequant_idct_blocks(np, _to_blocks(extra), q2), 24, 40).astype(
+            np.uint8))
+    assert tidct.dequant_idct_planes.launches == 0
+
+
+def test_plane_blocks_cover_each_block_once():
+    """K9's flat list of blocks (``plane_blocks``, the host's numbering,
+    read back with the kernel's arithmetic) covers every block of every
+    plane exactly once, an empty plane among them."""
+    shapes = [(768, 4032), (384, 2016), (0, 16), (56, 80), (8, 8)]
+    first, total = tidct.plane_blocks(shapes)
+    assert total == sum((h // 8) * (w // 8) for h, w in shapes)
+    seen = set()
+    for i in range(total):
+        p = max(j for j in range(len(shapes)) if i >= first[j])
+        h, w = shapes[p]
+        by, bx = divmod(i - first[p], w // 8)
+        assert 0 <= by < h // 8 and 0 <= bx < w // 8
+        assert (p, by, bx) not in seen
+        seen.add((p, by, bx))
+    assert len(seen) == total
 
 
 # --- plans and staged shard inputs ------------------------------------------
@@ -455,7 +495,7 @@ def test_decode_sharded_matches_golden(streams, case):
         b = b[:comp.size_y, :comp.size_x]
         assert a.dtype == b.dtype and a.shape == b.shape
         assert np.array_equal(a, b)
-    assert tidct.dequant_idct_plane.launches == 0
+    assert tidct.dequant_idct_planes.launches == 0
 
 
 @pytest.fixture(scope="module")
