@@ -10,12 +10,16 @@ line) on the first phase that fails; nothing is caught and carried past:
 2. builds the nine CUDA kernels from `jpeggpu_tpu_torch/kernels/csrc` and
    the native host destuffer (the run fails where that one is missing, so
    that every host time below is the native destuffer's);
-3. small streams made with the port's encoder from a numpy seed (4:2:0 with
-   restarts, 4:4:4, gray, non-interleaved, a saturated Huffman table,
-   random noise, and three with frequency-optimal Huffman tables, not those
-   of Annex K: `opt_huff`, `opt_huff_rst`, `opt_huff_q99`):
+3. small streams made with the port's encoder from a numpy seed: the whole
+   bit-exact matrix of the JAX package's tests and its robustness streams
+   that decode (`tests/torch_cases.matrix_streams`: every sampling, restart
+   intervals, non-interleaved scans, four components, quality 10 to 100,
+   saturated, per-scan and frequency-optimal Huffman tables, a truncated
+   scan, a garbage body, a DNL segment, a dangling RST):
    decode on the card == the port's numpy golden decoder, exactly, on the
-   default path and again under a plan built with
+   default path, sharded over 2 and 4 shards, as one `decode_batch` (pixels
+   and, with `with_idct=False`, coefficient planes), and again under a
+   plan built with
    `Tuning(write_mode="tiles", tile_mode="super")` (the records write
    path) and again with `tile_mode="lane"` (its per-lane tile shape),
    there also a flat low-entropy image, whose lanes drain through the
@@ -81,6 +85,19 @@ line) on the first phase that fails; nothing is caught and carried past:
    one read per round, no more than a set-up of two launches; a profiler
    that shows no device work fails the run. Then end-to-end ms and MP/s with
    and without host staging;
+6b. the batch path (`parallel/batch.py`): eight 12 MP images at quality
+   90 (seeds seed .. seed+7) through `BatchDecoder(device=dev).decode`, one
+   merged group at 8 x lanes: K1 held against its plain version on a round
+   at that width, K2 on the merged stream, K3 on the last image's slice of
+   it; the merged sync's rounds against each image's own; K1 and K2 at
+   widths of 1, 2, 4 and 8 images; the path counted (K1 once per merged
+   round, K2 once, K3 once per image, nothing else), each image == its own
+   decode; its times against the same images' single decodes in turns,
+   its device busy share, its host stages and peak memory. Then the batch
+   under `set_default_tuning(Tuning(write_mode="tiles"))` (supertiles on
+   the eight, per-lane tiles on four quality-30 images), the mesh route
+   (three images over two entries of the card, padded to four) and
+   `with_idct=False`, each counted or == the single decodes;
 7. one JSON line listing the kernels, the card's name and power limit, and
    the result line.
 
@@ -96,7 +113,9 @@ source statements, stated below.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -113,8 +132,14 @@ from jpeggpu_tpu_torch.ops import dc as DC
 from jpeggpu_tpu_torch.ops import huffman as H
 from jpeggpu_tpu_torch.ops import idct as I
 from jpeggpu_tpu_torch.ops import write as W
-from jpeggpu_tpu_torch.parallel import make_mesh
+from jpeggpu_tpu_torch.parallel import BatchDecoder, decode_batch, make_mesh
+from jpeggpu_tpu_torch.parallel import batch as BT
 from jpeggpu_tpu_torch.parallel import segments as SEG
+
+# the matrix of small streams (tests/torch_cases.py, shared with the CPU
+# tests)
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+import torch_cases  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
@@ -166,6 +191,8 @@ S420 = [(2, 2), (1, 1), (1, 1)]
 FULL_W, FULL_H, QUALITY = 4032, 3024, 90  # restart interval: one MCU row
 QUALITY_SPARSE = 30  # the same image with > 55 data units per subsequence
 SHARDS = 4  # shards of the sharded decode, all on the one card
+BATCH = 8  # images of the batch, the reference bench's default
+BATCH_SPARSE = 4  # images of the quality-30 batch (per-lane tiles)
 
 
 def log(msg: str) -> None:
@@ -215,31 +242,16 @@ def repeat_strip(strip: bytes, height: int) -> bytes:
 
 
 def small_streams(seed: int):
+    """Every stream of the bit-exact matrix and the robustness streams that
+    decode (``tests/torch_cases.matrix_streams``: 4:4:4 to 4:1:1 and mixed
+    samplings, restarts, non-interleaved, four components, quality 10 to
+    100, frequency-optimal and saturated Huffman tables, per-scan tables, a
+    truncated scan, a garbage body, a DNL segment, a dangling RST), made
+    from this script's images."""
     rng = np.random.default_rng(seed)
     img = synthetic_image(45, 67, seed, sigma=6.0)
-    counts1 = np.zeros(16, np.uint8)
-    counts1[0] = 2  # two 1-bit codes: the code space saturates at length 1
-    saturated = {(0, 0): (counts1, np.array([0, 1], np.uint8)),
-                 (1, 0): (counts1, np.array([0x00, 0x11], np.uint8))}
     noise = rng.integers(0, 255, (48, 64, 3)).astype(np.uint8)
-    return [
-        ("420_rst2", encode(img, EncodeSpec(sampling=S420, restart_interval=2))),
-        ("444", encode(img, EncodeSpec(sampling=[(1, 1)] * 3))),
-        ("gray_rst3", encode(img[..., 0], EncodeSpec(restart_interval=3))),
-        ("non_interleaved", encode(img, EncodeSpec(sampling=S420,
-                                                   interleaved=False))),
-        ("saturated_table", encode(np.full((24, 32), 127, np.uint8), EncodeSpec(
-            huff_overrides=saturated, quality=50))),
-        ("noise_q98", encode(noise, EncodeSpec(quality=98))),
-        # frequency-optimal tables, not those of Annex K: the symbol table
-        # of K1, K2 and K4 meets them in a real stream
-        ("opt_huff", encode(img, EncodeSpec(sampling=S420,
-                                            optimize_huffman=True))),
-        ("opt_huff_rst", encode(img, EncodeSpec(
-            sampling=S420, optimize_huffman=True, restart_interval=3))),
-        ("opt_huff_q99", encode(img, EncodeSpec(quality=99,
-                                                optimize_huffman=True))),
-    ]
+    return torch_cases.matrix_streams(img, noise)
 
 
 # --- helpers ----------------------------------------------------------------
@@ -1821,6 +1833,526 @@ def phase_sharded_times(dev: torch.device, data: bytes, card: str, mesh):
     return times.get("::dequant_idct_planes_kernel", [])
 
 
+# --- the batched decode (parallel/batch.py) ---------------------------------
+
+def phase_batch_small_streams(dev: torch.device, seed: int) -> None:
+    """The whole matrix of small streams as one `decode_batch` on the card,
+    grouped as the batch groups them: == golden, pixels and (with
+    `with_idct=False`) coefficient planes."""
+    streams = small_streams(seed)
+    datas = [d for _, d in streams]
+    dec = BatchDecoder(device=dev)
+    for with_idct in (True, False):
+        dec.with_idct = with_idct
+        out = dec.decode(datas)
+        for (name, data), planes in zip(streams, out):
+            comps = T.parse(data).components
+            # golden's coefficient planes are padded to whole MCUs
+            expect = [g[:c.size_y, :c.size_x] for g, c in zip(
+                golden.decode(data, with_idct=with_idct), comps)]
+            check_equal_numpy(f"{name} in the batch (with_idct={with_idct})",
+                              planes, expect)
+        merged = [[streams[i][0] for i in images]
+                  for route, images in dec.routes if route == "merged"]
+        log(f"small streams: {len(streams)} in one decode_batch on "
+            f"{dev.type} (with_idct={with_idct}) == golden; "
+            f"{len(dec.routes)} decodes, merged groups {merged}, the others "
+            f"one by one")
+
+
+def batch_images(seed: int, quality: int, n: int, first=None):
+    """`n` distinct 12 MP images at `quality`, seeds seed .. seed+n-1
+    (`first`, if given, is the image of `seed`)."""
+    return [first if i == 0 and first is not None
+            else make_image(seed + i, quality)[1] for i in range(n)]
+
+
+def batch_group(datas, dev):
+    """The one group of a batch of images of one geometry: its padded
+    plan's signature and its images' host inputs, as `BatchDecoder` makes
+    them (under the process default tuning)."""
+    groups = BatchDecoder(device=dev)._groups(datas)
+    if len(groups) != 1:
+        raise AssertionError(f"the batch formed {len(groups)} groups")
+    return groups[0].plan.signature, groups[0].inputs
+
+
+def merged_entropy_held(dev, label: str, sp, ms, B: int):
+    """K1's shifted round and K2 at the width of a merged decode of `B`
+    images (`ms`, staged by `stage_merged`), each against its plain version
+    on the same CUDA tensors. Returns (cfg, arrs, ctx, the K2 stream, the
+    errors by wrapper)."""
+    cfg = dataclasses.replace(sp.cfg, lanes=B * sp.cfg.lanes)
+    arrs = ms.arrs
+    ctx = H.make_ctx(cfg, arrs)
+    valid = ctx.lane_valid
+    blind = H.subseq_pass(cfg, arrs, ctx, None, None, None, valid)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = H.subseq_pass(cfg, arrs, ctx, *blind[:3], valid, flag=flag)
+    ref_flag = torch.zeros_like(flag)
+    ref = H.subseq_pass_plain(cfg, arrs, ctx, *blind[:3], valid,
+                              flag=ref_flag)
+    errs = {"subseq_pass": max(max(max_abs_err(a, b) for a, b in zip(
+        got, ref)), max_abs_err(flag, ref_flag))}
+    p, c, z, n = H.sync_states(cfg, arrs, ctx)
+    n_off = H.symbol_offsets(cfg, arrs, n)
+    keywords = dict(pos_base=ms.pos_base, bound=ms.pos_bound,
+                    total_out=B * sp.cfg.total_positions)
+    coeffs = H.decode_write(cfg, arrs, ctx, p, c, z, n_off, **keywords)
+    errs["decode_write"] = max_abs_err(coeffs, H.decode_write_plain(
+        cfg, arrs, ctx, p, c, z, n_off, **keywords))
+    log(f"{label}: K1 shifted round at {cfg.lanes} lanes ({int(valid.sum())} "
+        f"valid), max_abs_err {errs['subseq_pass']} (states and flag); K2 on "
+        f"the merged stream ({B} x {sp.cfg.total_positions} positions, "
+        f"{nbytes(coeffs) / 1e6:.1f} MB), max_abs_err {errs['decode_write']}; "
+        f"against their plain versions")
+    if any(errs.values()):
+        raise AssertionError(f"{label}: K1 or K2 differs from its plain "
+                             f"version at merged width: {errs}")
+    return cfg, arrs, ctx, coeffs, errs
+
+
+def merged_records_held(dev, label: str, datas):
+    """K4 and the records path's tile kernels (K5 and K6 in the supertile
+    shape, K7 and K8 in the per-lane shape, as the process default tuning
+    resolves the group's plan) at the merged width of `datas`, each fed by
+    the real stage before it and held against its plain version on the
+    same CUDA tensors. Returns the errors by wrapper."""
+    B = len(datas)
+    sig, inputs = batch_group(datas, dev)
+    sp, = sig.scans
+    (ms,), _ = BT.stage_merged(sig, inputs, dev)
+    cfg = dataclasses.replace(sp.cfg, lanes=B * sp.cfg.lanes)
+    arrs = ms.arrs
+    ctx = H.make_ctx(cfg, arrs)
+    p, c, z, n = H.sync_states(cfg, arrs, ctx)
+    states = (p, c, z, H.symbol_offsets(cfg, arrs, n))
+    total = B * sp.cfg.total_positions
+    keywords = dict(pos_base=ms.pos_base, bound=ms.pos_bound,
+                    total_out=total)
+    rec, m = H.decode_write_emit(cfg, arrs, ctx, *states, **keywords)
+    errs = {"decode_write_emit": k4_error((rec, m), H.decode_write_emit_plain(
+        cfg, arrs, ctx, *states, **keywords))}
+    pos0 = (ms.pos_base + states[3]).to(torch.int32)
+    shape = W.resolve_tile_mode(cfg.tuning.tile_mode, cfg.tile_auto)
+    if shape == "super":
+        (val_rows, pk_rows, mmax_st, base, q, leftover, n_groups,
+         win) = W.supertile_records(rec, m, pos0 >> 6, pos0, total,
+                                    cfg.super_g, cfg.super_w,
+                                    cfg.tuning.s_trim, cfg.group_du,
+                                    cfg.super_d)
+        k5 = (val_rows, pk_rows, mmax_st, cfg.super_g, cfg.super_d)
+        stiles = W.supertiles_from_records(*k5)
+        errs["supertiles_from_records"] = max_abs_err(
+            stiles, W.supertiles_from_records_plain(*k5))
+        k6 = (stiles, base, q, n_groups, win, cfg.group_du)
+        got, ref = W.expand_supertiles(*k6), W.expand_supertiles_plain(*k6)
+        errs["expand_supertiles"] = max(max_abs_err(got[0], ref[0]),
+                                        max_abs_err(got[1], ref[1]))
+        what = (f"{tuple(stiles.shape)} supertiles = "
+                f"{nbytes(stiles) / 1e6:.1f} MB")
+    else:
+        val, wpos, du0, q, leftover, n_groups, max_du = W.lane_records(
+            rec, m, pos0 >> 6, pos0, total, cfg.tile_d)
+        reach = torch.where(leftover, -1, max_du)
+        k7 = (val, wpos, m, du0, ~leftover, cfg.tile_d)
+        tiles = W.tiles_from_records(*k7)
+        errs["tiles_from_records"] = max_abs_err(
+            tiles, W.tiles_from_records_plain(*k7))
+        errs["expand_tiles"] = max(
+            max_abs_err(W.expand_tiles(tiles, du0, q, n_groups, reach),
+                        W.expand_tiles_plain(tiles, du0, q, n_groups, reach)),
+            max_abs_err(W.expand_tiles(tiles, du0, q, n_groups),
+                        W.expand_tiles_plain(tiles, du0, q, n_groups)))
+        what = (f"{tuple(tiles.shape)} tiles = {nbytes(tiles) / 1e6:.1f} MB, "
+                f"K8 with and without reach")
+    log(f"{label}: {shape} shape at {cfg.lanes} lanes, K4 buffer "
+        f"{tuple(rec.shape)} = {nbytes(rec) / 1e6:.1f} MB, {int(m.sum())} "
+        f"records, {int(leftover.sum())} leftover lane(s), {what}: "
+        f"max_abs_err {errs} against the plain versions")
+    if any(errs.values()):
+        raise AssertionError(f"{label}: a records kernel differs from its "
+                             f"plain version at merged width: {errs}")
+    return errs
+
+
+def worst(*errs_by_wrapper):
+    """The largest error of each wrapper over several holdings."""
+    out = {}
+    for errs in errs_by_wrapper:
+        for name, err in errs.items():
+            out[name] = max(out.get(name, 0), err)
+    return out
+
+
+def phase_batch_kernels(dev: torch.device, card: str, datas):
+    """K1, K2 and K3 at the batch path's shapes: K1's shifted round at the
+    merged width, K2 on the whole merged stream and K3 on the last image's
+    slice of it (a view at its offset), each against its plain version on
+    the same CUDA tensors; the int32 reckoning at this width; the merged
+    sync's rounds against each image's own. Returns the staged merged
+    inputs, the merged stream, its symbol count, the merged rounds and the
+    errors by wrapper."""
+    B = len(datas)
+    sig, inputs = batch_group(datas, dev)
+    sp, = sig.scans
+    L, Tpos = sp.cfg.lanes, sp.cfg.total_positions
+    scans, qtables = BT.stage_merged(sig, inputs, dev)
+    ms, = scans
+    own = [pipeline.build_plan(T.parse(d)).signature.scans[0].cfg.lanes
+           for d in datas]
+    log(f"batch of {B}: lanes per image {own}, padded to {L} each, merged "
+        f"width {B * L} lanes")
+    cfg, arrs, ctx, coeffs, errs = merged_entropy_held(
+        dev, f"batch of {B}", sp, ms, B)
+
+    _, rounds, _ = counted(lambda: H.sync_states(cfg, arrs, ctx))
+    rounds = rounds["subseq_pass"]
+    singles = []
+    for d in datas:
+        plan = pipeline.build_plan(T.parse(d))
+        a = pipeline.stage_inputs(pipeline.build_inputs(d, plan), plan,
+                                  dev)["scans"][0]
+        c1 = plan.signature.scans[0].cfg
+        _, r, _ = counted(lambda: H.sync_states(c1, a, H.make_ctx(c1, a)))
+        singles.append(r["subseq_pass"])
+    log(f"sync rounds (K1 launches, the blind one included): merged "
+        f"{rounds}; each image alone {singles}, max {max(singles)}, sum "
+        f"{sum(singles)}")
+    if rounds != max(singles):
+        raise AssertionError("the merged sync must take as many rounds as "
+                             "its slowest image")
+
+    symbols = count_symbols(coeffs)
+    log(f"the merged stream holds {symbols} symbols")
+
+    b = B - 1
+    cb = coeffs[b * Tpos:(b + 1) * Tpos]
+    comp_slots = tuple((k[1], k[2] * k[3]) for k in sp.comps)
+    dcv = DC.undelta_dc_values(sp.cfg, comp_slots, cb)
+    k3_args = (cb, qtables[b], sp.idct_geometry, sp.cfg.du_per_mcu, dcv)
+    err = max(max_abs_err(x, y) for x, y in zip(
+        I.idct_stream_to_planes(*k3_args),
+        I.idct_stream_to_planes_plain(*k3_args)))
+    offset = cb.data_ptr() - coeffs.data_ptr()
+    log(f"K3 on image {b}'s slice of the merged stream (a view {offset} "
+        f"bytes in, address % 16 = {cb.data_ptr() % 16}): max_abs_err {err} "
+        f"against its plain version")
+    if err or offset != 2 * b * Tpos:
+        raise AssertionError("K3 on a slice differs from its plain version, "
+                             "or the slice is not a view at its offset")
+    errs["idct_stream_to_planes"] = err
+
+    s_cap = H._emit_cap(sp.cfg.tuning.write_chunk)
+    for what, value in (
+            ("bit offsets (lanes x 1024)", B * L * C.SUBSEQ_SIZE_BITS),
+            ("output positions (B x T)", B * Tpos),
+            ("K4's record slots (s_cap x lanes)", s_cap * B * L),
+            ("K7's tile cells at tile_d 128 (128 x 64 x lanes)",
+             128 * 64 * B * L)):
+        log(f"int32 at merged width: {what} {value} = "
+            f"{value / C.I32_MAX:.3f} of 2^31-1"
+            + ("" if value <= C.I32_MAX else " (indexed with 64-bit offsets "
+               "in the kernel)"))
+    return sig, scans, qtables, coeffs, symbols, rounds, errs
+
+
+def batch_bounds(B, cfg, symbols, words_bytes):
+    """K1's bound per round and K2's bound at the merged width, counted as
+    `phase_kernels` counts them for one image: K1 reads the words, the
+    named slots of the symbol table and 29 bytes per lane (context, start
+    states, valid, rel) and writes 16 (four states), 33 operations per
+    symbol; K2 reads the words, the table and 33 bytes per lane (context,
+    start states, valid, first position, bound) and writes the merged
+    stream (B x T int16), 55 operations per symbol."""
+    lanes, Tpos = B * cfg.lanes, cfg.total_positions
+    named = {s for g in cfg.comp_groups for s in g[1:]}
+    table = 2 * len(named) << H.SYMTAB_BITS
+    k1 = bound(words_bytes + table + 45 * lanes, symbols * K1_OPS_PER_SYMBOL)
+    k2 = bound(words_bytes + table + 33 * lanes + 2 * B * Tpos,
+               symbols * K2_OPS_PER_SYMBOL)
+    return k1, k2
+
+
+def kernel_ms(dev, fn, symbol: str):
+    """Device times of the launches of the kernel named `symbol` in three
+    calls of `fn`, from the profiler (a read back to the host closes the
+    window, as in a decode)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.ones(1, device=dev).sum().item()
+    return [e.self_device_time_total / 1e3 for e in prof.events()
+            if e.device_type == DeviceType.CUDA and symbol in e.name]
+
+
+def phase_batch_widths(dev: torch.device, card: str, datas) -> None:
+    """K1 (a shifted round) and K2 at merged widths of 1, 2, 4 and 8
+    images: how each scales with the width, and whether K2 slows down once
+    the merged stream outgrows the card's 50 MB L2 (one image's stream is
+    36.6 MB). Each wrapper with L2 warm (`time_ms`; K2's includes its zero
+    fill of the stream), and each kernel alone in the profiler."""
+    for k in (1, 2, 4, len(datas)):
+        sig, inputs = batch_group(datas[:k], dev)
+        sp, = sig.scans
+        scans, _ = BT.stage_merged(sig, inputs, dev)
+        ms, = scans
+        cfg = dataclasses.replace(sp.cfg, lanes=k * sp.cfg.lanes)
+        ctx = H.make_ctx(cfg, ms.arrs)
+        p, c, z, n = H.sync_states(cfg, ms.arrs, ctx)
+        n_off = H.symbol_offsets(cfg, ms.arrs, n)
+
+        def k1():
+            return H.subseq_pass(cfg, ms.arrs, ctx, p, c, z, ctx.lane_valid)
+
+        def k2():
+            return H.decode_write(
+                cfg, ms.arrs, ctx, p, c, z, n_off, pos_base=ms.pos_base,
+                bound=ms.pos_bound, total_out=k * sp.cfg.total_positions)
+
+        k1_warm, _ = time_ms(k1, dev, launches=5, reps=3)
+        k2_warm, _ = time_ms(k2, dev, launches=3, reps=3)
+        alone = [statistics.median(t) if t else float("nan") for t in (
+            kernel_ms(dev, k1, "subseq_pass_kernel"),
+            kernel_ms(dev, k2, "decode_write_kernel"))]
+        log(f"merged width {k} image(s), {cfg.lanes} lanes, stream "
+            f"{2 * k * sp.cfg.total_positions / 1e6:.1f} MB: K1 round warm "
+            f"{k1_warm:.4f} ms ({k1_warm / k:.4f} per image), alone "
+            f"{alone[0]:.4f}; K2 with its fill warm {k2_warm:.4f} ms "
+            f"({k2_warm / k:.4f} per image), alone {alone[1]:.4f} "
+            f"({alone[1] / k:.4f} per image)  [{card}]")
+
+
+def phase_batch_path(dev: torch.device, card: str, datas, merged_state):
+    """The batch path: `BatchDecoder(device=dev).decode` of the full-width
+    batch, counted, == each image's own decode; then its times against
+    single decodes of the same images in turns, its device busy share, its
+    kernels inside the decode, its peak memory and its host stages."""
+    B = len(datas)
+    sig, scans, qtables, coeffs, symbols, rounds, _ = merged_state
+    sp, = sig.scans
+    L, Tpos = sp.cfg.lanes, sp.cfg.total_positions
+    singles = [T.decode(d, device=dev) for d in datas]
+    dec = BatchDecoder(device=dev)
+    out, launches, by_slot = counted(lambda: dec.decode(datas))
+    log(f"batch path launches: {launches}, components K3 covered by first "
+        f"slot: {by_slot}; routes {dec.routes}")
+    if not (dec.routes == [("merged", tuple(range(B)))]
+            and launches["subseq_pass"] == rounds
+            and launches["decode_write"] == 1
+            and launches["idct_stream_to_planes"] == B
+            and len(by_slot) == len(sp.comps)
+            and all(v == B for v in by_slot.values())
+            and not any(launches[k] for k in ("decode_write_emit",)
+                        + SUPER_KERNELS + LANE_KERNELS + SHARDED_KERNELS)):
+        raise AssertionError(f"the batch must be one merged group launching "
+                             f"K1 once per merged round ({rounds}), K2 once "
+                             f"and K3 once per image, and no other kernel: "
+                             f"{dec.routes} {launches} {by_slot}")
+    stream = T.parse(datas[0])
+    mp = stream.size_x * stream.size_y / 1e6
+    for i, (got, expect) in enumerate(zip(out, singles)):
+        check_equal_numpy(f"batch image {i} vs its own decode", got, expect)
+    log(f"batch of {B} x {mp:.1f} MP on the merged route == each image's own "
+        f"decode (held against golden and the plain path above)")
+
+    def med(fn, reps=5):
+        return host_ms(fn, dev, reps)
+
+    stages = {}
+    stages["parse + plans"], prelim = med(
+        lambda: [pipeline.build_plan(T.parse(d)) for d in datas])
+    stages["re-plan with pad_scans"], plans = med(
+        lambda: [pipeline.build_plan(p.stream, pad_scans=pipeline.group_pad(
+            prelim)) for p in prelim])
+    stages["build_inputs"], inputs = med(
+        lambda: [pipeline.build_inputs(d, p) for d, p in zip(datas, plans)])
+    stages["merge_scan_inputs"], merged = med(
+        lambda: BT.merge_scan_inputs(sp, [i["scans"][0] for i in inputs]))
+    stages["copy in"], _ = med(lambda: (
+        convert.scan_arrays(merged, dev, sp.cfg.fast_tables),
+        torch.from_numpy(merged["pos_base"]).to(dev),
+        torch.from_numpy(merged["pos_bound"]).to(dev),
+        torch.from_numpy(np.stack([i["qtables"] for i in inputs])).to(dev)))
+    for name, ms in stages.items():
+        log(f"batch stage {name}: {ms:.3f} ms for {B} images  [{card}]")
+
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    BT.decode_merged(sig, scans, qtables)
+    sync(dev)
+    log(f"batch path: peak device memory of a decode of {B} from staged "
+        f"inputs {(torch.cuda.max_memory_allocated(dev) - held) / 1e6:.1f} "
+        f"MB above the {held / 1e6:.1f} MB held (the staged merged inputs "
+        f"and this script's tensors)")
+
+    decoders = []
+    for d in datas:
+        one = T.Decoder(device=dev)
+        one.parse_header(d)
+        one.transfer()
+        decoders.append(one)
+    runs = {
+        "batch, from staged merged inputs":
+            lambda: BT.decode_merged(sig, scans, qtables),
+        "single decodes, from staged inputs":
+            lambda: [one.decode(device=True) for one in decoders],
+        "batch, with host staging": lambda: BatchDecoder(
+            device=dev).decode(datas),
+        "single decodes, with host staging":
+            lambda: [T.decode(d, device=dev) for d in datas],
+    }
+    for fn in runs.values():
+        fn()
+    turns = {label: [] for label in runs}
+    for _ in range(9):
+        for label, fn in runs.items():
+            sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            turns[label].append((time.perf_counter() - t0) * 1e3)
+    med_ms = {}
+    for label, ms in turns.items():
+        ms = sorted(ms)
+        med_ms[label] = ms[4]
+        log(f"{label} of {B} x {mp:.1f} MP: 9 turns with the other three: "
+            f"median {ms[4]:.2f} ms = {ms[4] / B:.3f} ms per image = "
+            f"{B * mp / ms[4] * 1e3:.0f} MP/s, quartiles {ms[2]:.2f} - "
+            f"{ms[6]:.2f} ms  [{card}]")
+    for one in decoders:
+        one.cleanup()
+
+    times = profile_decode(
+        dev, card, f"batch path ({B} images)",
+        lambda: BT.decode_merged(sig, scans, qtables),
+        med_ms["batch, from staged merged inputs"],
+        ("::subseq_pass_kernel", "::decode_write_kernel",
+         "::idct_stream_to_planes_kernel"))
+    (k1_b, k1_by), (k2_b, k2_by) = batch_bounds(
+        B, sp.cfg, symbols, nbytes(scans[0].arrs.words))
+    k1_ms = times.get("::subseq_pass_kernel", [])
+    k2_ms = times.get("::decode_write_kernel", [])
+    if k1_ms:
+        log(f"K1 in the batch decode: {len(k1_ms)} rounds, median "
+            f"{statistics.median(k1_ms):.4f} ms per round at {B * L} lanes, "
+            f"bound {k1_b:.4f} ms by {k1_by} ({symbols} symbols x "
+            f"{K1_OPS_PER_SYMBOL})  [{card}]")
+    if k2_ms:
+        log(f"K2 in the batch decode: {k2_ms[0]:.4f} ms, bound {k2_b:.4f} ms "
+            f"by {k2_by} ({2 * B * Tpos / 1e6:.1f} MB written)  [{card}]")
+    return (launches, by_slot, times, dict(bound_ms_batch=k1_b,
+                                           bound_by_batch=k1_by),
+            dict(bound_ms_batch=k2_b, bound_by_batch=k2_by))
+
+
+def phase_batch_routes(dev: torch.device, card: str, datas, sparse,
+                       fused_coeffs):
+    """The batch under `set_default_tuning(Tuning(write_mode="tiles"))`:
+    the full-width batch with the supertile shape (its merged records
+    stream and DC vector held against the merged K2 stream) and the sparse
+    batch with the per-lane shape, counted; the mesh route on two entries
+    of the one card; `with_idct=False`. Returns the launch counts of
+    the two records batches and the errors of each kernel held against its
+    plain version at these routes' shapes (K4-K6 on the dense batch, K4,
+    K7 and K8 on the sparse one, K1 and K2 at each mesh entry's width)."""
+    B = len(datas)
+    singles = [T.decode(d, device=dev) for d in datas]
+    sparse_singles = [T.decode(d, device=dev) for d in sparse]
+    base_tuning = T.default_tuning()
+    T.set_default_tuning(AUTO)
+    try:
+        dec = BatchDecoder(device=dev)
+        out, tl, tby = counted(lambda: dec.decode(datas))
+        log(f"batch records path (supertile shape) launches: {tl}, routes "
+            f"{dec.routes}; {W.scatter_leftover.lanes} leftover lane(s)")
+        if not (dec.routes == [("merged", tuple(range(B)))]
+                and tl["subseq_pass"] >= 2 and tl["decode_write"] == 0
+                and all(tl[k] == 1 for k in ("decode_write_emit",)
+                        + SUPER_KERNELS)
+                and tl["idct_stream_to_planes"] == B
+                and not any(tl[k] for k in LANE_KERNELS + SHARDED_KERNELS)):
+            raise AssertionError(f"the dense batch's records path must "
+                                 f"launch K4, K5 and K6 once and K3 per "
+                                 f"image: {tl}")
+        for i, (got, expect) in enumerate(zip(out, singles)):
+            check_equal_numpy(f"records batch image {i}", got, expect)
+        sig, inputs = batch_group(datas, dev)
+        sp, = sig.scans
+        scans, _ = BT.stage_merged(sig, inputs, dev)
+        tcoeffs, tdc = BT._merged_scan_coeffs(sp, scans[0], B)
+        err = max(max_abs_err(tcoeffs, fused_coeffs),
+                  max_abs_err(tdc[:B * sp.cfg.total_positions // 64],
+                              fused_coeffs[::64].contiguous()))
+        log(f"merged records stream and DC vector ({B * sp.cfg.lanes} "
+            f"lanes): max_abs_err {err} against the merged K2 stream")
+        if err:
+            raise AssertionError("the merged records stream differs from "
+                                 "K2's")
+        dense_errs = merged_records_held(dev, f"records batch of {B}", datas)
+
+        dec = BatchDecoder(device=dev)
+        out, ll, lby = counted(lambda: dec.decode(sparse))
+        sig, _ = batch_group(sparse, dev)
+        cfg = sig.scans[0].cfg
+        log(f"sparse batch of {len(sparse)} (quality {QUALITY_SPARSE}, "
+            f"tile_auto {cfg.tile_auto}, tile_d {cfg.tile_d}, "
+            f"{len(sparse) * cfg.lanes} lanes: tiles "
+            f"{128 * cfg.tile_d * len(sparse) * cfg.lanes / 1e6:.0f} MB) "
+            f"launches: {ll}, routes {dec.routes}; "
+            f"{W.scatter_leftover.lanes} leftover lane(s)")
+        if not (dec.routes == [("merged", tuple(range(len(sparse))))]
+                and all(ll[k] == 1 for k in ("decode_write_emit",)
+                        + LANE_KERNELS)
+                and ll["idct_stream_to_planes"] == len(sparse)
+                and not any(ll[k] for k in ("decode_write",) + SUPER_KERNELS
+                            + SHARDED_KERNELS)):
+            raise AssertionError(f"the sparse batch must launch K4, K7 and "
+                                 f"K8 once and K3 per image: {ll}")
+        for i, (got, expect) in enumerate(zip(out, sparse_singles)):
+            check_equal_numpy(f"sparse batch image {i}", got, expect)
+        sparse_errs = merged_records_held(
+            dev, f"sparse batch of {len(sparse)}", sparse)
+    finally:
+        T.set_default_tuning(base_tuning)
+    log(f"records path batches (supertile shape on {B} images, per-lane "
+        f"shape on {len(sparse)}) == each image's own decode")
+
+    dec = BatchDecoder(mesh=make_mesh([dev] * 2))
+    out, ml, _ = counted(lambda: dec.decode(datas[:3]))
+    log(f"mesh of 2 entries of the card, 3 images: routes {dec.routes}, "
+        f"launches {ml}")
+    if not (dec.routes == [("mesh_merged", (0, 1)), ("mesh_merged", (2, 2))]
+            and ml["decode_write"] == 2
+            and ml["idct_stream_to_planes"] == 4):
+        raise AssertionError(f"the mesh route must pad 3 images to 4 and "
+                             f"decode 2 per entry: {dec.routes} {ml}")
+    for i, (got, expect) in enumerate(zip(out, singles)):
+        check_equal_numpy(f"mesh batch image {i}", got, expect)
+    sig, inputs = batch_group(datas[:3], dev)
+    sp, = sig.scans
+    mesh_errs = []
+    for entry in ((0, 1), (2, 2)):
+        (ms,), _ = BT.stage_merged(sig, [inputs[i] for i in entry], dev)
+        mesh_errs.append(merged_entropy_held(
+            dev, f"mesh entry of images {entry}", sp, ms, len(entry))[4])
+
+    coeff_planes = decode_batch(datas[:2], with_idct=False, device=dev)
+    for i, (got, d) in enumerate(zip(coeff_planes, datas)):
+        with T.Decoder(device=dev) as one:
+            one.parse_header(d)
+            check_equal_numpy(f"with_idct=False batch image {i}", got,
+                              one.decode(with_idct=False))
+    log("mesh route == each image's own decode; decode_batch(with_idct="
+        "False) == Decoder.decode(with_idct=False), int16 planes "
+        + ", ".join(str(p.shape) for p in coeff_planes[0]))
+    return tl, tby, ll, lby, worst(dense_errs, sparse_errs, *mesh_errs)
+
+
 def make_image(seed: int, quality: int, strip_rows: int = 9):
     """The 12 MP test image at `quality`: a strip of MCU rows encoded with
     the numpy encoder, and the image that repeats its restart segments.
@@ -1854,6 +2386,7 @@ def main() -> int:
     phase_k3_any_input(dev, args.seed)
     phase_k9_any_input(dev, args.seed)
     phase_sharded_small_streams(dev, args.seed)
+    phase_batch_small_streams(dev, args.seed)
 
     strip, data = make_image(args.seed, QUALITY)
     golden_strip = repeat_strip(strip, 48)
@@ -1912,6 +2445,27 @@ def main() -> int:
     slaunches, sby_slot = phase_sharded_path(dev, data, card, mesh, expect)
     k9["ms_in_decode"] = phase_sharded_times(dev, data, card, mesh)
     entries.append(k9)
+
+    datas = batch_images(args.seed, QUALITY, BATCH, first=data)
+    merged_state = phase_batch_kernels(dev, card, datas)
+    phase_batch_widths(dev, card, datas)
+    blaunches, bby_slot, btimes, k1_batch, k2_batch = phase_batch_path(
+        dev, card, datas, merged_state)
+    sparse_datas = batch_images(args.seed, QUALITY_SPARSE, BATCH_SPARSE,
+                                first=sparse)
+    (tblaunches, tbby_slot, lblaunches, lbby_slot,
+     route_errs) = phase_batch_routes(dev, card, datas, sparse_datas,
+                                      merged_state[3])
+    batch_errs = worst(merged_state[6], route_errs)
+    for e in entries:
+        key = f"::{e['name']}_kernel"
+        if key in btimes:
+            e["ms_in_batch_decode"] = btimes[key]
+        # held against its plain version at the batch routes' shapes (None:
+        # K9, not on the batch path)
+        e["max_abs_err_batch"] = batch_errs.get(e["name"])
+        e.update({"subseq_pass": k1_batch,
+                  "decode_write": k2_batch}.get(e["name"], {}))
     for e in entries:
         # counted by the wrappers during each main path's run (K3's
         # one-component entries: the components its launches covered);
@@ -1930,6 +2484,14 @@ def main() -> int:
         e["launches_records_path"] = on_records
         e["launches_lane_path"] = on_lane
         e["launches_sharded_path"] = on_sharded
+        # the batch path: the merged default batch for K1-K3, the merged
+        # records batches for K4-K8 (supertiles on the dense batch, tiles
+        # on the sparse one); K9 is not on it
+        on_batch = [counts[e["name"]] if slot is None else by.get(slot, 0)
+                    for counts, by in ((blaunches, bby_slot),
+                                       (tblaunches, tbby_slot),
+                                       (lblaunches, lbby_slot))]
+        e["launches_batch_path"] = next((v for v in on_batch if v), 0)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -8,8 +8,10 @@ Plain tensor code is PyTorch; the kernels of the decode path (three on the
 default path, five more on the records write path that
 ``Tuning(write_mode="tiles")`` selects, one more in the tail of the sharded
 decode, ``parallel.segments.decode_sharded``) are CUDA C++
-(``kernels/csrc``), built at first use. The package imports torch and numpy
-only.
+(``kernels/csrc``), built at first use. A batch of images decodes through
+``parallel.decode_batch`` / ``parallel.BatchDecoder``: images of one
+geometry that share their Huffman tables as one decode, their lanes side by
+side. The package imports torch and numpy only.
 """
 
 from .config import Tuning, default_tuning, set_default_tuning

@@ -29,6 +29,10 @@ MAX_HUFF_PER_SCAN = MAX_COMPONENTS * HUFF_COUNT  # 8, layout [dc0,ac0,dc1,ac1,..
 CHUNK_SIZE_WORDS = 32
 SUBSEQ_SIZE_BYTES = CHUNK_SIZE_WORDS * 4  # 128 bytes
 SUBSEQ_SIZE_BITS = CHUNK_SIZE_WORDS * 32  # 1024 bits
+# bit offsets (lanes x 1024) and output positions are int32 on the device:
+# one decode's stay at or below this (ops.huffman.make_ctx and the write
+# stage raise past it; parallel.batch splits a larger merged group)
+I32_MAX = 2 ** 31 - 1
 
 # --- zig-zag order ---------------------------------------------------------
 # ORDER_NATURAL[i] = raster index of zig-zag index i (T.81 Figure A.6;

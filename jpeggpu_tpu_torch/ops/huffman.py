@@ -158,6 +158,8 @@ def make_ctx(cfg: ScanConfig, arrs: ScanArrays, num_subseq=None) -> Ctx:
     subsequences)."""
     dev = arrs.words.device
     lanes = cfg.lanes
+    if lanes * C.SUBSEQ_SIZE_BITS > C.I32_MAX:
+        raise ValueError(f"{lanes} lanes: bit offsets overflow int32")
     limits = _limits(arrs.maxcode)
 
     slots = np.zeros((cfg.du_per_mcu, 2), np.int32)
@@ -717,6 +719,8 @@ def _write_inputs(cfg, arrs, ctx, p, c, z, n_off, pos_base=None, bound=None,
     output length; the default bound is clamped already.
     """
     total = cfg.total_positions if total_out is None else total_out
+    if total > C.I32_MAX:
+        raise ValueError(f"{total} output positions overflow int32")
     seg = arrs.seg_of_subseq
     if pos_base is None:
         pos_base = seg * cfg.positions_per_seg

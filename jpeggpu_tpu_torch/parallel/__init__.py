@@ -1,10 +1,13 @@
-"""Sharded decode of one image over a mesh of devices.
+"""Decode over a mesh of devices: one image sharded, or a batch.
 
 A :class:`Mesh` is a list of ``torch.device``s, one per shard. Devices
 may repeat: four shards on one card is a mesh of four entries. The
 shards run in one process, each on its device, and exchange
 what the JAX package's collectives exchange through
-:mod:`~jpeggpu_tpu_torch.parallel.collectives`.
+:mod:`~jpeggpu_tpu_torch.parallel.collectives`
+(:mod:`~jpeggpu_tpu_torch.parallel.segments`). A batch of images decodes
+through :class:`BatchDecoder` / :func:`decode_batch`
+(:mod:`~jpeggpu_tpu_torch.parallel.batch`), on one device or over a mesh.
 """
 
 from __future__ import annotations
@@ -43,4 +46,7 @@ def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
     return Mesh(devs)
 
 
-__all__ = ["Mesh", "make_mesh"]
+# after Mesh and make_mesh, which the batch module's imports need
+from .batch import BatchDecoder, decode_batch  # noqa: E402
+
+__all__ = ["BatchDecoder", "Mesh", "decode_batch", "make_mesh"]

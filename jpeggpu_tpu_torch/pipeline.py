@@ -17,12 +17,14 @@ expand_supertiles (K6) -> leftover scatter, whose DC side vector feeds
 undelta_dc_values; or, for sparse scans, tiles_from_records (K7) ->
 expand_tiles (K8) -> leftover scatter, which has no side vector
 (undelta_dc_values then reads the DC column of the stream).
+With ``with_idct=False`` the tail is the reference's non-fused one:
+undelta_dc -> deinterleave -> int16 coefficient planes, cropped.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,10 +33,11 @@ from . import constants as C
 from . import convert
 from .config import Tuning, default_tuning
 from .errors import OutOfHostMemory
-from .ops.dc import undelta_dc_values
+from .ops.dc import undelta_dc, undelta_dc_values
 from .ops.huffman import (SYMTAB_BITS, ScanArrays, ScanConfig, _emit_cap,
                           decode_scan)
 from .ops.idct import idct_stream_to_planes
+from .ops.transpose import deinterleave
 from .ops.write import resolve_tile_mode
 from .reader import JpegStream, Scan, num_mcus_in_segment, parse
 from .tables import pack_huffman_tables
@@ -129,14 +132,75 @@ def _tile_geometry(scan: Scan, tuning: Tuning) -> Dict:
                 super_d=super_d, group_du=group_du, tile_auto=tile_auto)
 
 
-def build_plan(stream: JpegStream,
-               tuning: Optional[Tuning] = None) -> DecodePlan:
+class ScanPad(NamedTuple):
+    """Floors of one scan's content-dependent shape buckets (0 or "": no
+    floor), so that the images of a batch group share one padded plan
+    (``parallel/batch.py``). Each floor is one that keeps the decode exact:
+    padded lanes are inert (lane validity is data-driven, see
+    ``ops.huffman.make_ctx``), and a deeper tile, a smaller supertile
+    group, a wider window or a larger expand group only sends fewer lanes
+    through the leftover scatter. The reference's pad tuple has three more
+    entries that have no counterpart here: ``scan_bytes_padded`` sizes the
+    raw scan buffer of the device destuff, which is not ported, and
+    ``hv_rows`` / ``hv_slot_rows`` size a TPU layout of the Huffman value
+    table, which the CUDA kernels do not have."""
+
+    lanes: int = 0  # at least this many lanes
+    tile_d: int = 0  # at least this tile depth
+    super_g: int = 0  # at most this many lanes per supertile
+    super_w: int = 0  # at least this expand window
+    tile_auto: str = ""  # "lane": tile_mode="auto" takes the per-lane shape
+    group_du: int = 0  # at least this expand group
+    super_d: int = 0  # at least this supertile depth
+
+
+def group_pad(plans: Sequence[DecodePlan]) -> Tuple[ScanPad, ...]:
+    """Per scan, the floors that make every plan of ``plans`` (plans of one
+    pixel geometry) the same: the largest lane bucket, tile depth, window,
+    expand group and supertile depth, the smallest supertile group, and
+    "lane" if any of them takes the per-lane shape."""
+    pads = []
+    for cfgs in zip(*([sp.cfg for sp in p.signature.scans] for p in plans)):
+        pads.append(ScanPad(
+            lanes=max(c.lanes for c in cfgs),
+            tile_d=max(c.tile_d for c in cfgs),
+            super_g=min(c.super_g for c in cfgs),
+            super_w=max(c.super_w for c in cfgs),
+            tile_auto=("lane" if any(c.tile_auto == "lane" for c in cfgs)
+                       else "super"),
+            group_du=max(c.group_du for c in cfgs),
+            super_d=max(c.super_d for c in cfgs)))
+    return tuple(pads)
+
+
+def _floored(geometry: Dict, lanes: int, pad: Optional[ScanPad]):
+    """Scan geometry and lane bucket raised to ``pad``'s floors."""
+    if pad is None:
+        return geometry, lanes
+    g = dict(geometry)
+    g["tile_d"] = max(g["tile_d"], pad.tile_d)
+    if pad.super_g:
+        g["super_g"] = min(g["super_g"], pad.super_g)
+    g["super_w"] = max(g["super_w"], pad.super_w)
+    if pad.tile_auto == "lane":
+        g["tile_auto"] = "lane"
+    g["group_du"] = max(g["group_du"], pad.group_du)
+    g["super_d"] = max(g["super_d"], pad.super_d)
+    return g, max(lanes, pad.lanes)
+
+
+def build_plan(stream: JpegStream, tuning: Optional[Tuning] = None, *,
+               pad_scans: Optional[Sequence[ScanPad]] = None) -> DecodePlan:
     """Build the decode plan (static geometry) for a parsed stream under
-    ``tuning`` (default: the process default, ``config.default_tuning``)."""
+    ``tuning`` (default: the process default, ``config.default_tuning``).
+
+    ``pad_scans`` optionally gives per scan a :class:`ScanPad` of floors
+    for its shape buckets: a batch pads every image of a mixed group up to
+    the group's values (:func:`group_pad`) so that they share one plan."""
     if tuning is None:
         tuning = default_tuning()
     scans = []
-    for scan in stream.scans:
+    for si, scan in enumerate(stream.scans):
         comps = []
         for sc in scan.components:
             comp = stream.components[sc.component_idx]
@@ -153,8 +217,11 @@ def build_plan(stream: JpegStream,
                                 sc.dc_table_id * C.HUFF_COUNT + C.HUFF_DC,
                                 sc.ac_table_id * C.HUFF_COUNT + C.HUFF_AC))
         used_slots = {g[1] for g in comp_groups} | {g[2] for g in comp_groups}
+        pad = pad_scans[si] if pad_scans and si < len(pad_scans) else None
+        geometry, lanes = _floored(_tile_geometry(scan, tuning),
+                                   _bucket(scan.num_subsequences), pad)
         cfg = ScanConfig(
-            lanes=_bucket(scan.num_subsequences),
+            lanes=lanes,
             num_segments=scan.num_segments,
             du_per_mcu=scan.num_data_units_in_mcu,
             mcus_per_seg=num_mcus_in_segment(stream, scan),
@@ -163,7 +230,7 @@ def build_plan(stream: JpegStream,
             fast_tables=not any(scan.huff_tables[s].saturated
                                 for s in used_slots),
             tuning=tuning,
-            **_tile_geometry(scan, tuning),
+            **geometry,
         )
         scans.append(ScanPlanStatic(
             cfg=cfg, num_mcus_x=scan.num_mcus_x, num_mcus_y=scan.num_mcus_y,
@@ -292,34 +359,62 @@ def plan_buffer_size(plan: DecodePlan) -> int:
 
 # --- the device pipeline ----------------------------------------------------
 
-def decode_pipeline(signature: PlanSignature, scan_arrays: List[ScanArrays],
-                    qtables: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Full-image decode on the device of the staged inputs. Returns the
-    per-component uint8 planes, cropped to component size."""
-    pix: Dict[int, torch.Tensor] = {}
-    for sp, arrs in zip(signature.scans, scan_arrays):
-        cfg = sp.cfg
-        # dcd: the records write path's difference-coded DC side vector
-        # (None from the direct write, which has none)
-        coeffs, dcd = decode_scan(cfg, arrs, return_dc=True)
-        comp_slots = tuple((c[1], c[2] * c[3]) for c in sp.comps)
-        # DC un-delta as a side vector: the stream -> plane kernel takes
-        # slot 0 from it, so the DC stage never rewrites the stream
-        dcv = undelta_dc_values(cfg, comp_slots, coeffs, dc=dcd)
-        planes = idct_stream_to_planes(coeffs, qtables, sp.idct_geometry,
-                                       cfg.du_per_mcu, dcv)
-        for c, plane in zip(sp.comps, planes):
-            pix[c[0]] = plane
-    return tuple(pix[ci][:size_y, :size_x]
+def scan_planes(sp: ScanPlanStatic, coeffs: torch.Tensor,
+                dcd: Optional[torch.Tensor], qtables: torch.Tensor,
+                with_idct: bool = True) -> List[torch.Tensor]:
+    """The tail of one scan of one image: its stream-order coefficients
+    (``coeffs``, DC still difference-coded; ``dcd`` the records path's DC
+    side vector or None) -> per scan component its uncropped plane.
+
+    ``with_idct``: the DC un-delta as a side vector, then K3 (uint8
+    pixels). Else the reference's non-fused tail: the DC un-delta rewrites
+    the stream, which is de-interleaved into int16 coefficient planes."""
+    cfg = sp.cfg
+    comp_slots = tuple((c[1], c[2] * c[3]) for c in sp.comps)
+    if not with_idct:
+        coeffs = undelta_dc(cfg, comp_slots, coeffs)
+        return deinterleave(coeffs, cfg.du_per_mcu, sp.num_mcus_x,
+                            sp.num_mcus_y, [c[1:4] for c in sp.comps])
+    # DC un-delta as a side vector: the stream -> plane kernel takes slot
+    # 0 from it, so the DC stage never rewrites the stream
+    dcv = undelta_dc_values(cfg, comp_slots, coeffs, dc=dcd)
+    return idct_stream_to_planes(coeffs, qtables, sp.idct_geometry,
+                                 cfg.du_per_mcu, dcv)
+
+
+def crop(signature: PlanSignature,
+         planes: Dict[int, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Component index -> uncropped plane, to the planes in component
+    order, cropped to component size."""
+    return tuple(planes[ci][:size_y, :size_x]
                  for ci, (size_x, size_y) in enumerate(signature.comp_sizes))
 
 
+def decode_pipeline(signature: PlanSignature, scan_arrays: List[ScanArrays],
+                    qtables: torch.Tensor,
+                    with_idct: bool = True) -> Tuple[torch.Tensor, ...]:
+    """Full-image decode on the device of the staged inputs. Returns the
+    per-component planes, cropped to component size: uint8 pixels, or
+    with ``with_idct=False`` int16 coefficient planes (DC un-deltaed)."""
+    pix: Dict[int, torch.Tensor] = {}
+    for sp, arrs in zip(signature.scans, scan_arrays):
+        # dcd: the records write path's difference-coded DC side vector
+        # (None from the direct write, which has none)
+        coeffs, dcd = decode_scan(sp.cfg, arrs, return_dc=True)
+        for c, plane in zip(sp.comps, scan_planes(sp, coeffs, dcd, qtables,
+                                                  with_idct)):
+            pix[c[0]] = plane
+    return crop(signature, pix)
+
+
 def decode_jpeg_device(data: bytes, *, device=None,
-                       plan: Optional[DecodePlan] = None) -> List[np.ndarray]:
+                       plan: Optional[DecodePlan] = None,
+                       with_idct: bool = True) -> List[np.ndarray]:
     """One-shot decode of a JPEG; ``device=None`` is the card."""
     dev = resolve_device(device)
     if plan is None:
         plan = build_plan(parse(data))
     staged = stage_inputs(build_inputs(data, plan), plan, dev)
-    out = decode_pipeline(plan.signature, staged["scans"], staged["qtables"])
+    out = decode_pipeline(plan.signature, staged["scans"], staged["qtables"],
+                          with_idct)
     return [p.contiguous().cpu().numpy() for p in out]

@@ -17,6 +17,8 @@ import jpeggpu_tpu_torch as T
 from jpeggpu_tpu_torch import convert, golden, pipeline
 from jpeggpu_tpu_torch.encoder import EncodeSpec, encode
 
+import torch_cases
+
 _S420 = [(2, 2), (1, 1), (1, 1)]
 
 
@@ -185,8 +187,7 @@ def test_decoder_device_true_returns_tensors_on_its_device(data_420_rst2,
                for a, c, b in zip(planes, host, port_planes))
 
 
-@pytest.mark.parametrize("keyword", [dict(with_idct=False), dict(donate=True)],
-                         ids=["with_idct", "donate"])
+@pytest.mark.parametrize("keyword", [dict(donate=True)], ids=["donate"])
 def test_decoder_unported_decode_keywords_raise_not_supported(data_420_rst2,
                                                               keyword):
     """The JAX package's decode keywords that the port does not do yet
@@ -199,6 +200,27 @@ def test_decoder_unported_decode_keywords_raise_not_supported(data_420_rst2,
         assert err.value.status == T.Status.NOT_SUPPORTED
         default = {k: not v for k, v in keyword.items()}
         assert len(d.decode(**default)) == 3
+
+
+@pytest.mark.parametrize("name", torch_cases.CASES)
+def test_with_idct_false_matches_golden(test_image, name):
+    """Decoder.decode(with_idct=False) and decode_jpeg_device(with_idct=
+    False): int16 coefficient planes (DC un-deltaed, the reference's
+    non-fused tail) == golden's, cropped to component size, on every stream
+    of the entropy tests' matrix."""
+    data = torch_cases.case_data(name, test_image)
+    comps = T.parse(data).components
+    expect = [g[:c.size_y, :c.size_x]
+              for g, c in zip(golden.decode(data, with_idct=False), comps)]
+    with T.Decoder(device="cpu") as d:
+        d.parse_header(data)
+        got = d.decode(with_idct=False)
+    for out in (got, pipeline.decode_jpeg_device(data, device="cpu",
+                                                 with_idct=False)):
+        assert len(out) == len(expect)
+        for a, b in zip(out, expect):
+            assert a.dtype == b.dtype == np.int16 and a.shape == b.shape
+            assert np.array_equal(a, b)
 
 
 def test_decoder_host_destuff_false_raises_not_supported(data_420_rst2):
@@ -257,6 +279,7 @@ def test_import_without_jax_triton_or_nvcc():
         "import jpeggpu_tpu_torch.config, jpeggpu_tpu_torch.ops.write\n"
         "import jpeggpu_tpu_torch.parallel, jpeggpu_tpu_torch.parallel.segments\n"
         "import jpeggpu_tpu_torch.parallel.collectives\n"
+        "import jpeggpu_tpu_torch.parallel.batch\n"
         "assert not jpeggpu_tpu_torch.kernels._functions\n"
         "assert sorted(T.__all__) == sorted(set(T.__all__))\n"
         "assert all(hasattr(T, n) for n in T.__all__)\n"

@@ -1,10 +1,22 @@
-"""The matrix of streams of the port's entropy-decode tests
-(``test_torch_huffman.py``, ``test_torch_symbol_table.py``): eleven small
-streams made with the port's numpy encoder, each a shape of stream the
-decoder has to get right. Imports no JAX."""
+"""The matrices of streams of the port's tests, made with the port's numpy
+encoder. Imports no JAX.
+
+- ``CASES`` / :func:`case_data`: eleven small streams of the entropy-decode
+  tests (``test_torch_huffman.py``, ``test_torch_symbol_table.py``,
+  ``test_torch_pipeline.py``), each a shape of stream the decoder has to
+  get right.
+- :func:`matrix_streams`: every stream of the JAX package's bit-exact
+  matrix (``tests/test_device_bitexact.py``: ``SPECS`` and the tests below
+  it) and the four robustness streams of ``tests/test_robustness.py``
+  that decode, made the same way from the images given
+  (``test_torch_matrix.py``; ``chip_smoke.py`` makes them from its own
+  images).
+"""
 
 import numpy as np
 
+import jpeggpu_tpu_torch as T
+from jpeggpu_tpu_torch import constants as C
 from jpeggpu_tpu_torch.encoder import EncodeSpec, encode
 
 S420 = [(2, 2), (1, 1), (1, 1)]
@@ -52,3 +64,98 @@ def case_data(name, image):
 
 CASES = ["420_rst2", "420_rst7", "444", "422", "gray", "non_interleaved",
          "four_component", "tiny", "saturated_table", "flat", "per_scan_dht"]
+
+
+# tests/test_device_bitexact.py SPECS
+MATRIX_SPECS = [
+    ("444", dict(sampling=[(1, 1), (1, 1), (1, 1)])),
+    ("422", dict(sampling=[(2, 1), (1, 1), (1, 1)])),
+    ("420", dict(sampling=S420)),
+    ("440", dict(sampling=[(1, 2), (1, 1), (1, 1)])),
+    ("411", dict(sampling=[(4, 1), (1, 1), (1, 1)])),
+    ("mixed_ss", dict(sampling=[(2, 2), (2, 1), (1, 1)])),
+    ("nondivisor_ss", dict(sampling=[(3, 1), (2, 1), (1, 1)],
+                           restart_interval=3)),
+    ("ss_41_14", dict(sampling=[(4, 1), (1, 4), (1, 1)])),
+    ("420_rst2", dict(sampling=S420, restart_interval=2)),
+    ("420_rst7", dict(sampling=S420, restart_interval=7)),
+    ("444_rst1", dict(sampling=[(1, 1)] * 3, restart_interval=1)),
+    ("non_interleaved", dict(sampling=S420, interleaved=False)),
+    ("non_il_rst2", dict(sampling=S420, interleaved=False,
+                         restart_interval=2)),
+    ("q10", dict(quality=10)),
+    ("q99", dict(quality=99)),
+    ("four_tables", dict(sampling=S420, table_ids=[(0, 0), (1, 1), (2, 2)])),
+    ("opt_huff", dict(sampling=S420, optimize_huffman=True)),
+    ("opt_huff_rst", dict(sampling=S420, optimize_huffman=True,
+                          restart_interval=3)),
+    ("opt_huff_q99", dict(quality=99, optimize_huffman=True)),
+]
+
+
+def _robustness_streams(image):
+    """The four streams of tests/test_robustness.py that decode: a scan cut
+    at 70% (EOI kept), a random scan body behind a valid header, a DNL
+    segment before EOI, and a dangling RST after the last segment (an empty
+    final restart segment)."""
+    data = encode(image, EncodeSpec(sampling=S420))
+    scan = T.parse(data).scans[0]
+    raw = bytearray(data[:scan.begin + (scan.end - scan.begin) * 7 // 10])
+    if raw[-1] == 0xFF:
+        raw.pop()
+    truncated = bytes(raw) + bytes([0xFF, C.MARKER_EOI])
+
+    gray = encode(image[..., 0])
+    scan = T.parse(gray).scans[0]
+    body = np.random.default_rng(2).integers(0, 255, scan.end - scan.begin,
+                                             dtype=np.uint8)
+    body[body == 0xFF] = 0x7F  # no markers
+    garbled = gray[:scan.begin] + body.tobytes() + gray[scan.end:]
+
+    dnl = bytes([0xFF, C.MARKER_DNL, 0, 4]) + image.shape[0].to_bytes(2, "big")
+    with_dnl = data[:-2] + dnl + data[-2:]
+
+    rst = encode(image, EncodeSpec(sampling=S420, restart_interval=2))
+    scan = T.parse(rst).scans[0]
+    dangling = (rst[:scan.end] + bytes([0xFF, C.MARKER_RST0])
+                + rst[scan.end:])
+    return [("truncated_scan", truncated), ("garbage_body", garbled),
+            ("dnl_segment", with_dnl), ("dangling_rst", dangling)]
+
+
+def matrix_streams(image, noise):
+    """(name, bytes) of every stream of the bit-exact matrix and the
+    robustness streams that decode, from ``image`` (RGB, the JAX tests'
+    ``test_image``: 67x45) and ``noise`` (RGB noise, their
+    ``noise_image``: 64x48)."""
+    four = [image[..., 0], image[..., 1], image[..., 2], 255 - image[..., 0]]
+    rand = np.random.default_rng(7).integers(0, 255, (24, 16, 3)).astype(
+        np.uint8)
+    streams = [(name, encode(image, EncodeSpec(**kw)))
+               for name, kw in MATRIX_SPECS]
+    streams += [
+        ("opt_huff_q97", encode(image, EncodeSpec(optimize_huffman=True,
+                                                  quality=97))),
+        ("rand_420_rst2", encode(rand, EncodeSpec(sampling=S420,
+                                                  restart_interval=2))),
+        ("gray", encode(image[..., 0])),
+        ("gray_rst3", encode(image[..., 0], EncodeSpec(restart_interval=3))),
+        ("noise_q98", encode(noise, EncodeSpec(quality=98))),
+        ("noise_q100", encode(noise, EncodeSpec(quality=100))),
+        ("four_component", encode(four, EncodeSpec(sampling=[(1, 1)] * 4))),
+        ("four_component_non_interleaved", encode(four, EncodeSpec(
+            sampling=[(1, 1)] * 4, interleaved=False))),
+        ("tiny", encode(np.full((1, 1), 128, np.uint8))),
+        ("exact_mcu", encode(np.arange(64, dtype=np.uint8).reshape(8, 8))),
+        ("saturated_table", saturated_stream()),
+        ("default", encode(image)),
+        ("flat", encode(np.full((64, 96, 3), 200, np.uint8),
+                        EncodeSpec(sampling=S420))),
+        ("per_scan_dht", encode(image, EncodeSpec(
+            sampling=[(1, 1)] * 3, interleaved=False,
+            table_ids=[(0, 0)] * 3, dht_per_scan=True))),
+        ("per_scan_dht_rst5", encode(image, EncodeSpec(
+            sampling=[(1, 1)] * 3, interleaved=False,
+            table_ids=[(0, 0)] * 3, dht_per_scan=True, restart_interval=5))),
+    ]
+    return streams + _robustness_streams(image)
