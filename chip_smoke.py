@@ -98,6 +98,24 @@ line) on the first phase that fails; nothing is caught and carried past:
    the eight, per-lane tiles on four quality-30 images), the mesh route
    (three images over two entries of the card, padded to four) and
    `with_idct=False`, each counted or == the single decodes;
+6c. the device destuff (`Decoder(host_destuff=False)`, `ops/destuff.py`,
+   tensor code): on every small stream `destuff_scan` on the card == the
+   host destuffer's words, and the decode == golden on the default path
+   and under `Tuning(write_mode="tiles")`; on both 12 MP images its
+   launches are the default path's (K1 once per round, K2, K3;
+   `launches_device_destuff_path` in the `kernels` line) and its planes
+   the default path's; then both destuff modes in turns (decode from bytes
+   and from staged inputs), the host stage the device destuff replaces
+   beside the destuff's device time, launches and byte bound, the bytes
+   copied in, and peak device memory beside `get_buffer_size()`;
+6d. the rest of the Decoder API: `decode_into` into pitched CUDA tensors
+   (uint8 and int16, two images into the same memory, the pitch untouched,
+   no launch beyond the default path's, InvalidArgument for a host tensor
+   and a pitch below the width), `decode(donate=True)` (the staged words
+   freed, peak memory beside a decode without it), debug mode on the small
+   streams with the device destuff (and a corrupted destuff caught),
+   `python -m jpeggpu_tpu_torch.decode_tool`, and `debug.profile_trace`,
+   whose trace must hold the `jpeggpu.*` ranges and the kernels' names;
 7. one JSON line listing the kernels, the card's name and power limit, and
    the result line.
 
@@ -114,12 +132,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -129,6 +150,7 @@ from jpeggpu_tpu_torch import constants as C
 from jpeggpu_tpu_torch import convert, golden, kernels, native, pipeline
 from jpeggpu_tpu_torch.encoder import EncodeSpec, encode
 from jpeggpu_tpu_torch.ops import dc as DC
+from jpeggpu_tpu_torch.ops import destuff as DS
 from jpeggpu_tpu_torch.ops import huffman as H
 from jpeggpu_tpu_torch.ops import idct as I
 from jpeggpu_tpu_torch.ops import write as W
@@ -1111,12 +1133,20 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
     return launches, by_slot, tlaunches, tby_slot, dev_only, tiles_dev_only
 
 
+def on_card(e) -> bool:
+    """A profiler event that is device work: a kernel or a copy, not the
+    device-side range of a `jpeggpu.*` scope (`debug.scope`), whose time
+    is that of the kernels inside it."""
+    from torch.autograd import DeviceType
+
+    return e.device_type == DeviceType.CUDA and not e.is_user_annotation
+
+
 def profile_decode(dev, card, label, run, decode_ms, own) -> None:
     """The device's busy and idle share of one decode (`run`), from the
     profiler's kernel times against `decode_ms`, the time of a decode from
     staged inputs without the profiler; and the time of each launch of the
     kernels named in `own`, which it returns by name."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1124,7 +1154,7 @@ def profile_decode(dev, card, label, run, decode_ms, own) -> None:
         run()
         sync(dev)
     on_device = [e for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA]
+                 if on_card(e)]
     busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
     if busy_ms <= 0:
         log(f"{label}: device busy share of a decode: not measured (the "
@@ -1138,7 +1168,7 @@ def profile_decode(dev, card, label, run, decode_ms, own) -> None:
     times = {}
     for name in own:
         each = [e.self_device_time_total / 1e3 for e in prof.events()
-                if e.device_type == DeviceType.CUDA and name in e.name]
+                if on_card(e) and name in e.name]
         log(f"  inside the decode, {name.lstrip(':')} per launch, ms: "
             + " ".join(f"{t:.4f}" for t in each) + f"  [{card}]")
         times[name] = each
@@ -1323,7 +1353,6 @@ def sync_window(dev, card, cfg, arrs, ctx) -> None:
     """The profiler's device work inside one sync_states: one K1 launch per
     round and, besides, only a set-up that does not grow with the rounds
     (the flags' zero fill) and the one read per round."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _, counts, _ = counted(lambda: H.sync_states(cfg, arrs, ctx))
@@ -1334,7 +1363,7 @@ def sync_window(dev, card, cfg, arrs, ctx) -> None:
         sync(dev)
     names = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if on_card(e):
             names[e.name] = names.get(e.name, 0) + 1
     if not names:
         raise AssertionError("sync_states window: the profiler reported no "
@@ -1571,6 +1600,348 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
         d.cleanup()
     # the last profile is the per-lane shape's: its kernels inside the decode
     return launches, by_slot, times
+
+
+# --- the device destuff and the rest of the Decoder API ---------------------
+
+def device_destuff_words(data: bytes, dev: torch.device):
+    """Per scan of `data`: (the device destuff's words on `dev`, the host
+    destuffer's words, the scan's raw bytes and segment offsets on `dev`,
+    lanes), from one plan with `host_destuff=False`."""
+    plan = pipeline.build_plan(T.parse(data), host_destuff=False)
+    inputs = pipeline.build_inputs(data, plan)
+    buf = np.frombuffer(data, np.uint8)
+    out = []
+    for scan, sp, inp in zip(plan.stream.scans, plan.signature.scans,
+                             inputs["scans"]):
+        raw = torch.from_numpy(inp["raw"]).to(dev)
+        sso = torch.from_numpy(inp["seg_sub_offset"]).to(dev)
+        words = DS.destuff_scan(raw, sso, sp.cfg.lanes)
+        if words.device != raw.device:
+            raise AssertionError("the device destuff left its device")
+        out.append((words, pipeline._destuff_host(buf, scan, sp.cfg.lanes),
+                    raw, sso, sp.cfg.lanes))
+    return out
+
+
+def device_destuff_decode(data: bytes, dev: torch.device, **keywords):
+    """`Decoder(host_destuff=False).decode(**keywords)` of `data`."""
+    with T.Decoder(device=dev, host_destuff=False) as d:
+        d.parse_header(data)
+        return d.decode(**keywords)
+
+
+def phase_device_destuff_small_streams(dev: torch.device, seed: int) -> None:
+    """On the card, `ops.destuff.destuff_scan` == the host destuffer's words
+    on every scan of every small stream, and `Decoder(host_destuff=False)`
+    decodes each == golden, on the default path and under a plan built with
+    `Tuning(write_mode="tiles")`."""
+    for name, data in small_streams(seed):
+        for si, (words, host, *_) in enumerate(device_destuff_words(data,
+                                                                    dev)):
+            got = words.cpu().numpy().view(np.uint32)
+            if not np.array_equal(got, host):
+                bad = int(np.flatnonzero(got != host)[0])
+                raise AssertionError(f"{name} scan {si}: the device destuff "
+                                     f"differs from the host's at word {bad}")
+        expect = golden.decode(data)
+        check_equal_numpy(name, device_destuff_decode(data, dev), expect)
+        plan = pipeline.build_plan(T.parse(data), tuning=AUTO,
+                                   host_destuff=False)
+        check_equal_numpy(name, pipeline.decode_jpeg_device(
+            data, device=dev, plan=plan), expect)
+        log(f"small stream {name}: device destuff == host destuffer on every "
+            f"scan; Decoder(host_destuff=False) on {dev.type} == golden on "
+            f"the default path and the records write path")
+
+
+def device_work(dev: torch.device, run):
+    """(kernel name, device ms) of each launch the profiler sees in one
+    `run()`; fails where it sees none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        sync(dev)
+    out = [(e.name, e.self_device_time_total / 1e3) for e in prof.events()
+           if on_card(e)]
+    if not out:
+        raise AssertionError("the profiler saw no device work")
+    return out
+
+
+def peak_of(dev, host_destuff: bool, data: bytes, donate: bool = False):
+    """One decode from bytes in a new Decoder: its get_buffer_size, the
+    bytes of its staged inputs, and the peak of device memory above what
+    was allocated before it (staged inputs, destuff, decode; planes left on
+    the device), in bytes."""
+    sync(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with T.Decoder(device=dev, host_destuff=host_destuff) as d:
+        d.parse_header(data)
+        size = d.get_buffer_size()
+        d.transfer()
+        staged = torch.cuda.memory_allocated(dev) - before
+        planes = d.decode(device=True, donate=donate)
+        sync(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        del planes
+    return size, staged, peak
+
+
+def phase_device_destuff_path(dev: torch.device, card: str, data: bytes,
+                              label: str):
+    """The 12 MP image `data` through `Decoder(host_destuff=False)`: its
+    launches counted (K1 once per sync round as on the default path, K2
+    once, K3 once per scan, nothing else), its planes == the default
+    path's; then, in turns within this call, the decode from bytes and from
+    staged inputs with the host destuff and with the device destuff, the
+    host stage the device destuff replaces beside the device destuff's own
+    time, launches and bound, the bytes copied in, and peak device memory
+    beside `get_buffer_size()` for both. Returns the counted launches."""
+    expect, base, base_slot = counted(lambda: T.decode(data, device=dev))
+    planes, launches, by_slot = counted(lambda: device_destuff_decode(data,
+                                                                      dev))
+    log(f"{label}, device destuff path launches: {launches}, components K3 "
+        f"covered by first slot: {by_slot}; the default path's: {base}")
+    n_comps = len(T.parse(data).components)
+    if not (launches == base and by_slot == base_slot
+            and launches["subseq_pass"] >= 2
+            and launches["decode_write"] == 1
+            and k3_once(launches, by_slot, n_comps)):
+        raise AssertionError(f"the device destuff path must launch what the "
+                             f"default path does (K1 once per round, K2 "
+                             f"once, K3 once): {launches} {by_slot} against "
+                             f"{base} {base_slot}")
+    check_equal_numpy(f"{label}, device destuff vs default path", planes,
+                      expect)
+    (words, host, raw, sso, lanes), = device_destuff_words(data, dev)
+    if not np.array_equal(words.cpu().numpy().view(np.uint32), host):
+        raise AssertionError(f"{label}: the device destuff differs from the "
+                             f"host destuffer")
+    log(f"{label}: Decoder(host_destuff=False) == default path; device "
+        f"destuff == host destuffer ({host.size} words)")
+
+    # the host stages each mode pays, and the device destuff alone
+    plans = {h: pipeline.build_plan(T.parse(data), host_destuff=h)
+             for h in (True, False)}
+    stage, inputs, staged, copied = {}, {}, {}, {}
+    for h, name in ((True, "host destuff + tables"),
+                    (False, "raw staging + tables (device destuff)")):
+        stage[h], inputs[h] = host_ms(
+            lambda: pipeline.build_inputs(data, plans[h]), dev)
+        copy_ms, staged[h] = host_ms(
+            lambda: pipeline.stage_inputs(inputs[h], plans[h], dev), dev)
+        s = staged[h]["scans"][0]
+        copied[h] = nbytes(*(t for t in vars(s).values()
+                             if isinstance(t, torch.Tensor)))
+        log(f"{label}, stage {name}: {stage[h]:.3f} ms; copy in "
+            f"{copy_ms:.3f} ms for {copied[h] / 1e6:.3f} MB of scan inputs "
+            f"({'words' if h else 'raw bytes + segment offsets'}, segment "
+            f"tables, Huffman and symbol tables)  [{card}]")
+    run = lambda: DS.destuff_scan(raw, sso, lanes)  # noqa: E731
+    warm_ms, call_ms = time_ms(run, dev)
+    cold_ms = time_cold_ms(run, dev)
+    on_device = device_work(dev, run)
+    prof_ms = sum(ms for _, ms in on_device)
+    destuff_host_ms, _ = host_ms(run, dev)
+    b_ms, b_by = bound(raw.numel() + nbytes(words), 0)
+    log(f"{label}, device destuff (destuff_scan, {raw.numel()} raw bytes -> "
+        f"{nbytes(words)} bytes of words): {len(on_device)} launches, "
+        f"{prof_ms:.4f} ms of device time in the profiler; CUDA events "
+        f"{warm_ms:.4f} ms with L2 warm, {cold_ms:.4f} ms cold; "
+        f"{destuff_host_ms:.3f} ms on the host clock; bound {b_ms:.4f} ms "
+        f"({b_by}), {b_ms / cold_ms:.1%} of it cold  [{card}]")
+    for name, ms in sorted(on_device, key=lambda e: -e[1])[:6]:
+        log(f"  {ms:.4f} ms  {name[:70]}")
+
+    # decode from bytes and from staged inputs, both modes in turns
+    decoders = {}
+    for h in (True, False):
+        decoders[h] = T.Decoder(device=dev, host_destuff=h)
+        decoders[h].parse_header(data)
+        decoders[h].transfer()
+    one_shot = {True: lambda: T.decode(data, device=dev),
+                False: lambda: device_destuff_decode(data, dev)}
+    full = {True: [], False: []}
+    from_staged = {True: [], False: []}
+    for _ in range(4):
+        for h in (True, False, False, True):
+            sync(dev)
+            t0 = time.perf_counter()
+            one_shot[h]()
+            full[h].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            decoders[h].decode(device=True)
+            sync(dev)
+            from_staged[h].append((time.perf_counter() - t0) * 1e3)
+    stream = T.parse(data)
+    mp = stream.size_x * stream.size_y / 1e6
+    for h in (True, False):
+        name = "host destuff" if h else "device destuff"
+        for what, ms in (("from bytes (copy out included)", full[h]),
+                         ("from staged inputs", from_staged[h])):
+            ms = sorted(ms)
+            log(f"{label}, {name}: decode {what}, 8 turns with the other "
+                f"mode: median {statistics.median(ms):.2f} ms "
+                f"({mp / statistics.median(ms) * 1e3:.0f} MP/s), range "
+                f"{ms[0]:.2f} - {ms[-1]:.2f} ms  [{card}]")
+        decoders[h].cleanup()
+    for h in (True, False):
+        size, staged_b, peak = peak_of(dev, h, data)
+        log(f"{label}, {'host' if h else 'device'} destuff: get_buffer_size "
+            f"{size / 1e6:.1f} MB; measured peak of a decode from bytes "
+            f"{peak / 1e6:.1f} MB (staged inputs {staged_b / 1e6:.1f} MB "
+            f"included): get_buffer_size "
+            f"{'bounds' if size >= peak else 'does NOT bound'} it  [{card}]")
+    return launches, by_slot
+
+
+def phase_api(dev: torch.device, card: str, data: bytes, other: bytes,
+              expect, seed: int) -> None:
+    """The rest of the Decoder API on the card: `decode_into` into pitched
+    CUDA tensors (uint8 and int16; the corner == golden or the coefficient
+    planes, the pitch untouched, the same memory across two images, no
+    launch beyond the default path's, InvalidArgument for a CPU tensor and
+    a pitch below the width); `decode(donate=True)` (== golden, the staged
+    words freed, peak memory beside a decode without it, the next decode
+    right); debug mode on the small streams with the device destuff, and a
+    corrupted device destuff caught; `profile_trace`; the decode tool."""
+    info = T.parse(data)
+    sizes = [(c.size_y, c.size_x) for c in info.components]
+    if [(c.size_y, c.size_x) for c in T.parse(other).components] != sizes:
+        raise AssertionError("the two images differ in geometry")
+    def default_launches(img, with_idct):
+        with T.Decoder(device=dev) as d:
+            d.parse_header(img)
+            return counted(lambda: d.decode(with_idct=with_idct))[1:]
+
+    # the default path's launches on each image, pixels and coefficients
+    base = {(img, w): default_launches(img, w)
+            for img in (data, other) for w in (True, False)}
+    for with_idct, dtype, sentinel in ((True, torch.uint8, 77),
+                                       (False, torch.int16, -1234)):
+        outs = [torch.full((h + 5, w + 64), sentinel, dtype=dtype,
+                           device=dev) for h, w in sizes]
+        ptrs = [o.data_ptr() for o in outs]
+        with T.Decoder(device=dev) as d:
+            for img, ref in ((data, expect), (other, None)):
+                d.parse_header(img)
+                if ref is None or not with_idct:
+                    ref = d.decode(with_idct=with_idct)
+                got, *launches = counted(
+                    lambda: d.decode_into(outs, with_idct=with_idct))
+                if tuple(launches) != base[img, with_idct]:
+                    raise AssertionError(
+                        f"decode_into launched {launches}, the default path "
+                        f"{base[img, with_idct]}")
+                if [g.data_ptr() for g in got] != ptrs:
+                    raise AssertionError("decode_into moved the planes")
+                for g, (h, w) in zip(got, sizes):
+                    if not (bool((g[:h, w:] == sentinel).all())
+                            and bool((g[h:] == sentinel).all())):
+                        raise AssertionError("decode_into wrote past the "
+                                             "plane")
+                check_equal_numpy(f"decode_into {dtype}", [
+                    g[:h, :w].cpu().numpy() for g, (h, w) in zip(got, sizes)],
+                    ref)
+            # a tensor on another device: the host's (meta where the
+            # decoder itself runs on the host, as in a rehearsal)
+            other_dev = "cpu" if dev.type == "cuda" else "meta"
+            for bad in ([o.to(other_dev) for o in outs],
+                        [o[:, :w - 1] for o, (h, w) in zip(outs, sizes)]):
+                try:
+                    d.decode_into(bad, with_idct=with_idct)
+                except T.InvalidArgument:
+                    continue
+                raise AssertionError("decode_into took a CPU tensor or a "
+                                     "pitch below the width")
+    log(f"decode_into, uint8 and int16, two 12 MP images into the same "
+        f"pitched CUDA tensors: corner == golden / coefficient planes, pitch "
+        f"untouched, same data_ptr, the default path's launches "
+        f"{base[data, True][0]}; "
+        f"InvalidArgument for a CPU tensor and for a pitch below the width")
+
+    sync(dev)
+    for donate in (False, True, False, True):
+        size, staged_b, peak = peak_of(dev, True, data, donate=donate)
+        log(f"decode with donate={donate}: peak device memory of a decode "
+            f"from bytes {peak / 1e6:.1f} MB (staged inputs "
+            f"{staged_b / 1e6:.1f} MB included)  [{card}]")
+    with T.Decoder(device=dev) as d:
+        d.parse_header(data)
+        d.transfer()
+        held = weakref.ref(d._device_inputs["scans"][0].words)
+        check_equal_numpy("decode(donate=True)", d.decode(donate=True),
+                          expect)
+        gc.collect()
+        if held() is not None or d._device_inputs is not None:
+            raise AssertionError("decode(donate=True) kept the staged words")
+        check_equal_numpy("the decode after a donating one", d.decode(),
+                          expect)
+    log("decode(donate=True) == golden; the staged words were freed; the "
+        "next decode restaged and == golden")
+
+    streams = small_streams(seed)
+    T.debug.set_debug(True)
+    try:
+        for name, data_s in streams:
+            with T.Decoder(device=dev, host_destuff=False) as d:
+                d.parse_header(data_s)
+                d.decode()
+        log(f"debug mode on the {len(streams)} small streams "
+            f"with the device destuff: segment tables, device destuff == "
+            f"host, golden and sync-state invariants all hold")
+        good = DS.destuff_scan
+
+        def corrupted(raw, sso, lanes):
+            words = good(raw, sso, lanes).clone()
+            words[3] ^= 0xDEAD
+            return words
+
+        DS.destuff_scan = corrupted
+        try:
+            with T.Decoder(device=dev, host_destuff=False) as d:
+                d.parse_header(streams[0][1])
+                d.decode()
+        except T.InternalError as err:
+            if "destuff" not in str(err):
+                raise
+            log(f"debug mode caught a corrupted device destuff: {err}")
+        else:
+            raise AssertionError("debug mode missed a corrupted destuff")
+        finally:
+            DS.destuff_scan = good
+    finally:
+        T.debug.set_debug(False)
+
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        src = pathlib.Path(tmp) / "in.jpg"
+        src.write_bytes(streams[0][1])
+        out = subprocess.run(
+            [sys.executable, "-m", "jpeggpu_tpu_torch.decode_tool", str(src),
+             str(pathlib.Path(tmp) / "out.png"), "--device", dev.type],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        if out.returncode or not (pathlib.Path(tmp) / "out.png").exists():
+            raise AssertionError(f"decode_tool failed: {out.stderr}")
+        for line in out.stdout.splitlines():
+            log(f"  decode_tool: {line}")
+        with T.debug.profile_trace(tmp):
+            check_equal_numpy("decode inside profile_trace",
+                              device_destuff_decode(data, dev), expect)
+        trace, = pathlib.Path(tmp).glob("*.json")
+        text = trace.read_text()
+        names = ("jpeggpu.destuff", "jpeggpu.sync", "jpeggpu.write.fused",
+                 "jpeggpu.dc", "jpeggpu.idct_fused", "subseq_pass_kernel",
+                 "decode_write_kernel", "idct_stream_to_planes_kernel")
+        missing = [n for n in names if n not in text]
+        if missing:
+            raise AssertionError(f"the trace lacks {missing}")
+        log(f"profile_trace: a {len(text) / 1e6:.1f} MB Chrome trace of a "
+            f"12 MP decode holding {', '.join(names)}")
 
 
 # --- the sharded decode (parallel/segments.py) and its kernel K9 ------------
@@ -2078,7 +2449,6 @@ def kernel_ms(dev, fn, symbol: str):
     """Device times of the launches of the kernel named `symbol` in three
     calls of `fn`, from the profiler (a read back to the host closes the
     window, as in a decode)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2087,7 +2457,7 @@ def kernel_ms(dev, fn, symbol: str):
             fn()
         torch.ones(1, device=dev).sum().item()
     return [e.self_device_time_total / 1e3 for e in prof.events()
-            if e.device_type == DeviceType.CUDA and symbol in e.name]
+            if on_card(e) and symbol in e.name]
 
 
 def phase_batch_widths(dev: torch.device, card: str, datas) -> None:
@@ -2387,6 +2757,7 @@ def main() -> int:
     phase_k9_any_input(dev, args.seed)
     phase_sharded_small_streams(dev, args.seed)
     phase_batch_small_streams(dev, args.seed)
+    phase_device_destuff_small_streams(dev, args.seed)
 
     strip, data = make_image(args.seed, QUALITY)
     golden_strip = repeat_strip(strip, 48)
@@ -2440,6 +2811,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     check_equal_numpy("12 MP default path vs golden",
                       T.decode(data, device=dev), expect)
+    dlaunches, dby_slot = phase_device_destuff_path(
+        dev, card, data, f"quality {QUALITY}")
+    phase_device_destuff_path(dev, card, sparse, f"quality {QUALITY_SPARSE}")
+    phase_api(dev, card, data, sparse, expect, args.seed)
     mesh = make_mesh([dev] * SHARDS)
     k9 = sharded_kernels(dev, data, card, mesh)
     slaunches, sby_slot = phase_sharded_path(dev, data, card, mesh, expect)
@@ -2484,6 +2859,9 @@ def main() -> int:
         e["launches_records_path"] = on_records
         e["launches_lane_path"] = on_lane
         e["launches_sharded_path"] = on_sharded
+        # Decoder(host_destuff=False) on the quality-90 image
+        e["launches_device_destuff_path"] = (
+            dlaunches[e["name"]] if slot is None else dby_slot.get(slot, 0))
         # the batch path: the merged default batch for K1-K3, the merged
         # records batches for K4-K8 (supertiles on the dense batch, tiles
         # on the sparse one); K9 is not on it

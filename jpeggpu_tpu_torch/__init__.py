@@ -11,7 +11,10 @@ decode, ``parallel.segments.decode_sharded``) are CUDA C++
 (``kernels/csrc``), built at first use. A batch of images decodes through
 ``parallel.decode_batch`` / ``parallel.BatchDecoder``: images of one
 geometry that share their Huffman tables as one decode, their lanes side by
-side. The package imports torch and numpy only.
+side. ``Decoder(host_destuff=False)`` destuffs on the device (tensor code,
+``ops/destuff.py``); ``debug`` holds the debug mode and ``profile_trace``;
+``python -m jpeggpu_tpu_torch.decode_tool`` is the command line. The
+package imports torch and numpy only.
 """
 
 from .config import Tuning, default_tuning, set_default_tuning
@@ -57,7 +60,7 @@ def __getattr__(name):
         from . import api
 
         return getattr(api, name)
-    if name in ("golden", "encoder"):
+    if name in ("golden", "debug", "encoder"):
         import importlib
 
         return importlib.import_module(f".{name}", __name__)

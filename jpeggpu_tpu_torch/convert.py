@@ -17,7 +17,8 @@ path cross the same way, as numpy, in both directions (:func:`to_torch`,
 include)`` and ``(tiles, du0, q)`` have the same shapes, types and meaning
 in both packages. The sharded decode's stacked shard inputs cross the
 same way (:func:`shard_arrays`). Nothing of the JAX package is imported
-here.
+here. A scan staged for the device destuff carries ``raw`` and
+``seg_sub_offset`` in place of ``words``.
 """
 
 from __future__ import annotations
@@ -97,7 +98,10 @@ def scan_arrays(scan_inputs: Mapping[str, np.ndarray],
                 device: torch.device | str, fast_tables: bool) -> ScanArrays:
     """Per-scan numpy arrays -> :class:`ScanArrays` on ``device``, with the
     symbol table under the plan's ``fast_tables``. The uint32 word stream
-    is carried as its int32 bit patterns."""
+    is carried as its int32 bit patterns. A scan staged for the device
+    destuff (``raw`` and ``seg_sub_offset`` in place of ``words``) keeps
+    them as uint8 and int32 tensors, and ``words`` is None until the
+    destuff fills it (``pipeline.destuffed``)."""
     def i32(name, shape):
         a = np.ascontiguousarray(scan_inputs[name])
         if a.dtype == np.uint32:
@@ -105,8 +109,13 @@ def scan_arrays(scan_inputs: Mapping[str, np.ndarray],
         a = a.astype(np.int32, copy=False).reshape(shape)
         return torch.from_numpy(a).to(device)
 
+    raw = "raw" in scan_inputs
     return ScanArrays(
-        words=i32("words", -1),
+        words=None if raw else i32("words", -1),
+        raw=(torch.from_numpy(np.ascontiguousarray(scan_inputs["raw"],
+                                                   np.uint8)).to(device)
+             if raw else None),
+        seg_sub_offset=i32("seg_sub_offset", -1) if raw else None,
         seg_of_subseq=i32("seg_of_subseq", -1),
         seg_first_lane=i32("seg_first_lane", -1),
         seg_num_subseq=i32("seg_num_subseq", -1),

@@ -37,7 +37,7 @@ to int64).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +45,7 @@ import torch
 from .. import constants as C
 from .. import kernels
 from ..config import Tuning
+from ..debug import scope
 
 _M32 = 0xFFFFFFFF
 
@@ -98,7 +99,10 @@ class ScanConfig:
 class ScanArrays:
     """Device inputs for one scan."""
 
-    words: torch.Tensor  # int32[lanes*32] bit patterns of big-endian words
+    # int32[lanes*32] bit patterns of big-endian words; None for a scan
+    # staged for the device destuff (``raw``, ``seg_sub_offset``) until
+    # ``pipeline.destuffed`` fills it
+    words: Optional[torch.Tensor]
     seg_of_subseq: torch.Tensor  # int32[lanes]
     seg_first_lane: torch.Tensor  # int32[lanes] first subsequence of my segment
     seg_num_subseq: torch.Tensor  # int32[lanes] subsequence count of my segment
@@ -116,6 +120,11 @@ class ScanArrays:
     # before its own words. The kernels and the plain versions both read
     # word -1 from there; with 0 no index below 0 occurs.
     lead_words: int = 0
+    # a scan staged for the device destuff (``host_destuff=False``): its
+    # uint8 raw body, zero padded, and int32[num_segments_padded] first
+    # subsequence per segment (``ops.destuff.destuff_scan``'s inputs)
+    raw: Optional[torch.Tensor] = None
+    seg_sub_offset: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -977,9 +986,10 @@ def decode_scan(cfg: ScanConfig, arrs: ScanArrays, return_dc: bool = False,
     ``num_subseq`` goes to :func:`make_ctx`, the others to the write stage
     (:func:`_write_inputs`).
     """
-    ctx = make_ctx(cfg, arrs, num_subseq=num_subseq)
-    p, c, z, n = sync_states(cfg, arrs, ctx)
-    n_off = symbol_offsets(cfg, arrs, n)
+    with scope("jpeggpu.sync", arrs.words.device):
+        ctx = make_ctx(cfg, arrs, num_subseq=num_subseq)
+        p, c, z, n = sync_states(cfg, arrs, ctx)
+        n_off = symbol_offsets(cfg, arrs, n)
     return decode_scan_from_states(cfg, arrs, ctx, p, c, z, n_off,
                                    return_dc=return_dc, pos_base=pos_base,
                                    bound=bound, total_out=total_out)
@@ -997,10 +1007,12 @@ def decode_scan_from_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, p, c,
     mid-segment."""
     keywords = dict(pos_base=pos_base, bound=bound, total_out=total_out,
                     entry=entry)
-    if cfg.tuning.write_mode == "tiles":
-        from . import write
+    mode = cfg.tuning.write_mode
+    with scope(f"jpeggpu.write.{mode}", arrs.words.device):
+        if mode == "tiles":
+            from . import write
 
-        return write.decode_write_tiles(cfg, arrs, ctx, p, c, z, n_off,
-                                        return_dc=return_dc, **keywords)
-    coeffs = decode_write(cfg, arrs, ctx, p, c, z, n_off, **keywords)
+            return write.decode_write_tiles(cfg, arrs, ctx, p, c, z, n_off,
+                                            return_dc=return_dc, **keywords)
+        coeffs = decode_write(cfg, arrs, ctx, p, c, z, n_off, **keywords)
     return (coeffs, None) if return_dc else coeffs

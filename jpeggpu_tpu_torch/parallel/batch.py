@@ -61,7 +61,12 @@ def merge_scan_inputs(sp: ScanPlanStatic,
     The Huffman tables are image 0's: the caller checks that they are
     shared (:func:`_tables_shared`). Raises ``ValueError`` where a merged
     position would pass int32 (``constants.I32_MAX``); the decode itself
-    refuses bit offsets past it (``ops.huffman.make_ctx``)."""
+    refuses bit offsets past it (``ops.huffman.make_ctx``). The scans
+    must be host-destuffed (``host_destuff=True``), as in the JAX
+    package: a raw-staged scan raises ``ValueError``."""
+    if not sp.host_destuff:
+        raise ValueError("the merged decode takes host-destuffed scans "
+                         "(host_destuff=True)")
     cfg = sp.cfg
     L = cfg.lanes
     B = len(per_image)
@@ -106,9 +111,10 @@ def _geometry_key(sig: PlanSignature) -> PlanSignature:
     images with equal keys share one plan after padding."""
     scans = tuple(
         dataclasses.replace(
-            sp, cfg=dataclasses.replace(sp.cfg, lanes=0, tile_d=0, super_g=0,
-                                        super_w=0, super_d=0, group_du=0,
-                                        tile_auto=""))
+            sp, scan_bytes_padded=0,
+            cfg=dataclasses.replace(sp.cfg, lanes=0, tile_d=0, super_g=0,
+                                    super_w=0, super_d=0, group_du=0,
+                                    tile_auto=""))
         for sp in sig.scans)
     return PlanSignature(scans=scans, comp_sizes=sig.comp_sizes)
 

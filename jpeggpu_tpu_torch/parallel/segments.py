@@ -45,6 +45,7 @@ import torch
 
 from .. import constants as C
 from .. import convert
+from ..debug import scope
 from ..errors import NotSupported
 from ..ops.huffman import (ScanConfig, decode_scan, decode_scan_from_states,
                            make_ctx, symbol_offsets, sync_states)
@@ -414,14 +415,16 @@ def _tail_chunks(st: ShardedScan, with_idct: bool,
     cfg, sp = st.shp.cfg, st.sp
     chunks = psum_scatter(frames, [f.device for f in frames])
     comp_slots = tuple((c[1], c[2] * c[3]) for c in sp.comps)
-    chunks = _undelta_dc_chunks(cfg, comp_slots, chunks)
+    with scope("jpeggpu.dc", chunks[0].device):
+        chunks = _undelta_dc_chunks(cfg, comp_slots, chunks)
     t_comps = [(c[1], c[2], c[3]) for c in sp.comps]
     blocks = [[] for _ in sp.comps]
     for chunk, shard in zip(chunks, st.shards):
-        planes = deinterleave(chunk, cfg.du_per_mcu, sp.num_mcus_x, st.rows,
-                              t_comps)
+        with scope("jpeggpu.deinterleave", chunk.device):
+            planes = deinterleave(chunk, cfg.du_per_mcu, sp.num_mcus_x,
+                                  st.rows, t_comps)
         if with_idct:
-            with _on(chunk.device):
+            with _on(chunk.device), scope("jpeggpu.idct", chunk.device):
                 planes = dequant_idct_planes(
                     planes, [shard["qtables"][c[6]] for c in sp.comps])
         for i, plane in enumerate(planes):

@@ -18,7 +18,12 @@ undelta_dc_values; or, for sparse scans, tiles_from_records (K7) ->
 expand_tiles (K8) -> leftover scatter, which has no side vector
 (undelta_dc_values then reads the DC column of the stream).
 With ``with_idct=False`` the tail is the reference's non-fused one:
-undelta_dc -> deinterleave -> int16 coefficient planes, cropped.
+undelta_dc -> deinterleave -> int16 coefficient planes, cropped. Under a
+plan built with ``host_destuff=False`` the raw scan bytes are staged and
+the chain starts with the device destuff (``ops/destuff.py``, tensor code).
+Each stage runs inside a ``debug.scope`` named as in the JAX package
+(``jpeggpu.destuff``, ``.sync``, ``.write.<mode>``, ``.dc``,
+``.idct_fused``, ``.deinterleave``).
 """
 
 from __future__ import annotations
@@ -32,8 +37,10 @@ import torch
 from . import constants as C
 from . import convert
 from .config import Tuning, default_tuning
+from .debug import scope
 from .errors import OutOfHostMemory
 from .ops.dc import undelta_dc, undelta_dc_values
+from .ops.destuff import destuff_scan
 from .ops.huffman import (SYMTAB_BITS, ScanArrays, ScanConfig, _emit_cap,
                           decode_scan)
 from .ops.idct import idct_stream_to_planes
@@ -70,11 +77,20 @@ class ScanPlanStatic:
     """Hashable static geometry of one scan."""
 
     cfg: ScanConfig
+    # raw scan buffer of the device destuff, bytes (a shape bucket, raised
+    # to a batch group's floor), and the segment table's padded length
+    scan_bytes_padded: int
+    num_segments_padded: int
     num_mcus_x: int
     num_mcus_y: int
     # per scan component: (component_idx, off_in_mcu, ss_eff_x, ss_eff_y,
     #                      data_size_x, data_size_y, qtable_idx)
     comps: Tuple[Tuple[int, int, int, int, int, int, int], ...]
+    # True: the host destuffs (native C++, numpy where there is no
+    # compiler) and the staged input is the word stream. False: the raw
+    # scan bytes are staged and destuffed on the device (ops/destuff.py).
+    # The host is the default, as in the JAX package.
+    host_destuff: bool = True
 
     @property
     def idct_geometry(self):
@@ -139,11 +155,12 @@ class ScanPad(NamedTuple):
     padded lanes are inert (lane validity is data-driven, see
     ``ops.huffman.make_ctx``), and a deeper tile, a smaller supertile
     group, a wider window or a larger expand group only sends fewer lanes
-    through the leftover scatter. The reference's pad tuple has three more
-    entries that have no counterpart here: ``scan_bytes_padded`` sizes the
-    raw scan buffer of the device destuff, which is not ported, and
-    ``hv_rows`` / ``hv_slot_rows`` size a TPU layout of the Huffman value
-    table, which the CUDA kernels do not have."""
+    through the leftover scatter, and a longer raw buffer only adds zero
+    bytes past the scan, which the device destuff writes as zeros past the
+    last segment's data. The reference's pad tuple has two more entries
+    that have no counterpart here: ``hv_rows`` / ``hv_slot_rows`` size a
+    TPU layout of the Huffman value table, which the CUDA kernels do not
+    have."""
 
     lanes: int = 0  # at least this many lanes
     tile_d: int = 0  # at least this tile depth
@@ -152,15 +169,17 @@ class ScanPad(NamedTuple):
     tile_auto: str = ""  # "lane": tile_mode="auto" takes the per-lane shape
     group_du: int = 0  # at least this expand group
     super_d: int = 0  # at least this supertile depth
+    scan_bytes: int = 0  # at least this raw scan buffer
 
 
 def group_pad(plans: Sequence[DecodePlan]) -> Tuple[ScanPad, ...]:
     """Per scan, the floors that make every plan of ``plans`` (plans of one
     pixel geometry) the same: the largest lane bucket, tile depth, window,
-    expand group and supertile depth, the smallest supertile group, and
-    "lane" if any of them takes the per-lane shape."""
+    expand group, supertile depth and raw scan buffer, the smallest
+    supertile group, and "lane" if any of them takes the per-lane shape."""
     pads = []
-    for cfgs in zip(*([sp.cfg for sp in p.signature.scans] for p in plans)):
+    for sps in zip(*(p.signature.scans for p in plans)):
+        cfgs = [sp.cfg for sp in sps]
         pads.append(ScanPad(
             lanes=max(c.lanes for c in cfgs),
             tile_d=max(c.tile_d for c in cfgs),
@@ -169,7 +188,8 @@ def group_pad(plans: Sequence[DecodePlan]) -> Tuple[ScanPad, ...]:
             tile_auto=("lane" if any(c.tile_auto == "lane" for c in cfgs)
                        else "super"),
             group_du=max(c.group_du for c in cfgs),
-            super_d=max(c.super_d for c in cfgs)))
+            super_d=max(c.super_d for c in cfgs),
+            scan_bytes=max(sp.scan_bytes_padded for sp in sps)))
     return tuple(pads)
 
 
@@ -190,9 +210,12 @@ def _floored(geometry: Dict, lanes: int, pad: Optional[ScanPad]):
 
 
 def build_plan(stream: JpegStream, tuning: Optional[Tuning] = None, *,
+               host_destuff: bool = True,
                pad_scans: Optional[Sequence[ScanPad]] = None) -> DecodePlan:
     """Build the decode plan (static geometry) for a parsed stream under
     ``tuning`` (default: the process default, ``config.default_tuning``).
+    ``host_destuff=False`` stages each scan's raw bytes for the device
+    destuff (:attr:`ScanPlanStatic.host_destuff`).
 
     ``pad_scans`` optionally gives per scan a :class:`ScanPad` of floors
     for its shape buckets: a batch pads every image of a mixed group up to
@@ -233,8 +256,12 @@ def build_plan(stream: JpegStream, tuning: Optional[Tuning] = None, *,
             **geometry,
         )
         scans.append(ScanPlanStatic(
-            cfg=cfg, num_mcus_x=scan.num_mcus_x, num_mcus_y=scan.num_mcus_y,
-            comps=tuple(comps)))
+            cfg=cfg,
+            scan_bytes_padded=max(_bucket(scan.end - scan.begin, 1024),
+                                  pad.scan_bytes if pad else 0),
+            num_segments_padded=_bucket(scan.num_segments, 64),
+            num_mcus_x=scan.num_mcus_x, num_mcus_y=scan.num_mcus_y,
+            comps=tuple(comps), host_destuff=host_destuff))
     sig = PlanSignature(
         scans=tuple(scans),
         comp_sizes=tuple((c.size_x, c.size_y) for c in stream.components),
@@ -265,7 +292,9 @@ def _destuff_host(buf: np.ndarray, scan: Scan, lanes: int) -> np.ndarray:
 def build_scan_inputs(buf: np.ndarray, scan: Scan,
                       sp: ScanPlanStatic) -> Dict[str, np.ndarray]:
     """Numpy arrays for one scan, padded to the plan's bucket shapes: the
-    destuffed word stream, the per-lane segment tables and the packed
+    destuffed word stream (``words``; under ``host_destuff=False`` the raw
+    scan body ``raw`` and each segment's first subsequence
+    ``seg_sub_offset`` instead), the per-lane segment tables and the packed
     Huffman tables, staged once per image."""
     lanes = sp.cfg.lanes
     counts = scan.segments[:, 1]
@@ -280,8 +309,7 @@ def build_scan_inputs(buf: np.ndarray, scan: Scan,
         seg_first_lane[len(seg_of):] = scan.segments[-1, 0]
         seg_num_subseq[len(seg_of):] = scan.segments[-1, 1]
     maxcode, vsm, huffval = pack_huffman_tables(scan.huff_tables)
-    return dict(
-        words=_destuff_host(buf, scan, lanes),
+    out = dict(
         seg_of_subseq=seg_of_subseq,
         seg_first_lane=seg_first_lane,
         seg_num_subseq=seg_num_subseq,
@@ -289,6 +317,17 @@ def build_scan_inputs(buf: np.ndarray, scan: Scan,
         vsm=vsm,
         huffval=huffval,
     )
+    if sp.host_destuff:
+        out["words"] = _destuff_host(buf, scan, lanes)
+    else:
+        raw = np.zeros(sp.scan_bytes_padded, np.uint8)
+        raw[:scan.end - scan.begin] = buf[scan.begin:scan.end]
+        seg_sub_offset = np.full(sp.num_segments_padded,
+                                 scan.num_subsequences, np.int32)
+        seg_sub_offset[:scan.num_segments] = scan.segments[:, 0]
+        out["raw"] = raw
+        out["seg_sub_offset"] = seg_sub_offset
+    return out
 
 
 def build_inputs(data: bytes | np.ndarray, plan: DecodePlan) -> Dict:
@@ -305,7 +344,9 @@ def build_inputs(data: bytes | np.ndarray, plan: DecodePlan) -> Dict:
 
 def stage_inputs(inputs: Dict, plan: DecodePlan, device: torch.device) -> Dict:
     """Copy the host inputs of :func:`build_inputs` to ``device``, with each
-    scan's symbol table under its plan's ``fast_tables``."""
+    scan's symbol table under its plan's ``fast_tables``: the word stream,
+    or for a scan planned with ``host_destuff=False`` its raw bytes, which
+    :func:`destuffed` turns into words on the device."""
     return dict(
         scans=[convert.scan_arrays(s, device, sp.cfg.fast_tables)
                for s, sp in zip(inputs["scans"], plan.signature.scans)],
@@ -333,6 +374,15 @@ def plan_buffer_size(plan: DecodePlan) -> int:
         coeffs = 2 * cfg.total_positions + 2 * total_du
         planes = sum(c[4] * c[5] for c in sp.comps)
         total += tables + staged + ctx + sync + write + coeffs + planes
+        if not sp.host_destuff:
+            # the raw body and the segment table; the destuff's widest
+            # moment, its running maximum (ops.destuff._segment_base):
+            # three byte masks, the byte counts, their product with the
+            # markers, the maximum and its int64 indices, 23 bytes per raw
+            # byte (24 counted, for the allocator's rounding); its output,
+            # whose view is the words, has one byte more
+            n = sp.scan_bytes_padded
+            total += n + 4 * sp.num_segments_padded + 24 * n + 1
         if cfg.tuning.write_mode != "tiles":
             continue
         s_cap = _emit_cap(cfg.tuning.write_chunk)
@@ -370,16 +420,21 @@ def scan_planes(sp: ScanPlanStatic, coeffs: torch.Tensor,
     pixels). Else the reference's non-fused tail: the DC un-delta rewrites
     the stream, which is de-interleaved into int16 coefficient planes."""
     cfg = sp.cfg
+    dev = coeffs.device
     comp_slots = tuple((c[1], c[2] * c[3]) for c in sp.comps)
     if not with_idct:
-        coeffs = undelta_dc(cfg, comp_slots, coeffs)
-        return deinterleave(coeffs, cfg.du_per_mcu, sp.num_mcus_x,
-                            sp.num_mcus_y, [c[1:4] for c in sp.comps])
+        with scope("jpeggpu.dc", dev):
+            coeffs = undelta_dc(cfg, comp_slots, coeffs)
+        with scope("jpeggpu.deinterleave", dev):
+            return deinterleave(coeffs, cfg.du_per_mcu, sp.num_mcus_x,
+                                sp.num_mcus_y, [c[1:4] for c in sp.comps])
     # DC un-delta as a side vector: the stream -> plane kernel takes slot
     # 0 from it, so the DC stage never rewrites the stream
-    dcv = undelta_dc_values(cfg, comp_slots, coeffs, dc=dcd)
-    return idct_stream_to_planes(coeffs, qtables, sp.idct_geometry,
-                                 cfg.du_per_mcu, dcv)
+    with scope("jpeggpu.dc", dev):
+        dcv = undelta_dc_values(cfg, comp_slots, coeffs, dc=dcd)
+    with scope("jpeggpu.idct_fused", dev):
+        return idct_stream_to_planes(coeffs, qtables, sp.idct_geometry,
+                                     cfg.du_per_mcu, dcv)
 
 
 def crop(signature: PlanSignature,
@@ -390,17 +445,40 @@ def crop(signature: PlanSignature,
                  for ci, (size_x, size_y) in enumerate(signature.comp_sizes))
 
 
+def destuffed(arrs: ScanArrays, lanes: int) -> ScanArrays:
+    """A scan staged raw (``host_destuff=False``) -> the same scan with its
+    words, destuffed on the device that holds its bytes; a scan that has
+    its words already is returned as it is."""
+    if arrs.words is not None:
+        return arrs
+    with scope("jpeggpu.destuff", arrs.raw.device):
+        words = destuff_scan(arrs.raw, arrs.seg_sub_offset, lanes)
+    return dataclasses.replace(arrs, words=words, raw=None,
+                               seg_sub_offset=None)
+
+
 def decode_pipeline(signature: PlanSignature, scan_arrays: List[ScanArrays],
-                    qtables: torch.Tensor,
-                    with_idct: bool = True) -> Tuple[torch.Tensor, ...]:
+                    qtables: torch.Tensor, with_idct: bool = True, *,
+                    donate: bool = False) -> Tuple[torch.Tensor, ...]:
     """Full-image decode on the device of the staged inputs. Returns the
     per-component planes, cropped to component size: uint8 pixels, or
-    with ``with_idct=False`` int16 coefficient planes (DC un-deltaed)."""
+    with ``with_idct=False`` int16 coefficient planes (DC un-deltaed).
+
+    ``donate=True`` hands the staged scans over: each entry of
+    ``scan_arrays`` is set to None as its scan starts, so that, where the
+    caller holds no other reference, the raw bytes are freed once
+    destuffed and the words and tables once the write stage has read
+    them, and the caching allocator reuses that memory for the tail."""
     pix: Dict[int, torch.Tensor] = {}
-    for sp, arrs in zip(signature.scans, scan_arrays):
+    for i, sp in enumerate(signature.scans):
+        arrs = scan_arrays[i]
+        if donate:
+            scan_arrays[i] = None
+        arrs = destuffed(arrs, sp.cfg.lanes)
         # dcd: the records write path's difference-coded DC side vector
         # (None from the direct write, which has none)
         coeffs, dcd = decode_scan(sp.cfg, arrs, return_dc=True)
+        del arrs
         for c, plane in zip(sp.comps, scan_planes(sp, coeffs, dcd, qtables,
                                                   with_idct)):
             pix[c[0]] = plane

@@ -32,6 +32,8 @@ from jpeggpu_tpu_torch.parallel import (BatchDecoder, decode_batch,
                                         make_mesh)
 from jpeggpu_tpu_torch.parallel import batch as B
 
+import torch_cases
+
 _S420 = [(2, 2), (1, 1), (1, 1)]
 _CPU = torch.device("cpu")
 
@@ -116,22 +118,11 @@ def test_batch_mixed_geometry(test_image):
     _assert_golden(datas, out)
 
 
-def _mixed_lengths():
-    """Three gray 256x256 images, restart interval 8 (one geometry), whose
-    streams differ in length: 1.3 KB, 66 KB, 29 KB. Their lane buckets
-    (256 / 768 / 256) and tile geometry differ."""
-    flat = np.full((256, 256), 128, np.uint8)
-    noise = np.random.default_rng(5).integers(0, 255, (256, 256)).astype(
-        np.uint8)
-    return [encode(img, EncodeSpec(quality=q, restart_interval=8))
-            for img, q in ((flat, 30), (noise, 95), (noise, 50))]
-
-
 def test_mixed_stream_lengths_share_one_padded_plan():
     """Images of one pixel geometry whose streams differ in length pad up
     to the group's floors and decode as one merged group: each image's
     padded lanes sit inside the merged width, inert."""
-    datas = _mixed_lengths()
+    datas = torch_cases.mixed_lengths()
     prelim = [pipeline.build_plan(T.parse(d)).signature.scans[0].cfg
               for d in datas]
     assert len({c.lanes for c in prelim}) > 1  # genuinely different buckets
@@ -148,7 +139,7 @@ def test_mixed_stream_lengths_records_path(tile_mode):
     exactly through the records write path in both tile shapes: the tile
     floors (tile_d, super_g, super_w, group_du, super_d, tile_auto) are
     raised for some images, and the merged decode reads them."""
-    datas = _mixed_lengths()
+    datas = torch_cases.mixed_lengths()
     tuning = T.Tuning(write_mode="tiles", tile_mode=tile_mode)
     base = T.default_tuning()
     T.set_default_tuning(tuning)
@@ -309,46 +300,57 @@ def test_merged_sub_batches(monkeypatch):
 
 def test_build_plan_pad_scans_floors():
     """build_plan(pad_scans=): every floor is honoured (lanes, tile depth,
-    window, expand group and supertile depth raised, supertile group
-    lowered, the per-lane shape taken), a pad below the plan's own values
-    changes nothing, and the padded plan decodes exactly."""
+    window, expand group, supertile depth and raw scan buffer raised,
+    supertile group lowered, the per-lane shape taken), a pad below the
+    plan's own values changes nothing, and the padded plan decodes
+    exactly, with the host destuff and the device destuff."""
     data = _pair()[0]
     stream = T.parse(data)
-    own = pipeline.build_plan(stream).signature.scans[0].cfg
+    own_sp = pipeline.build_plan(stream).signature.scans[0]
+    own = own_sp.cfg
     low = pipeline.build_plan(stream, pad_scans=(pipeline.ScanPad(
         lanes=1, tile_d=1, super_g=64, super_w=1, tile_auto="super",
-        group_du=1, super_d=1),))
-    assert low.signature.scans[0].cfg == own
+        group_du=1, super_d=1, scan_bytes=1),)).signature.scans[0]
+    assert low.cfg == own and low.scan_bytes_padded == own_sp.scan_bytes_padded
     pad = pipeline.ScanPad(lanes=own.lanes + 512, tile_d=own.tile_d + 32,
                            super_g=2, super_w=own.super_w + 3,
                            tile_auto="lane", group_du=own.group_du + 128,
-                           super_d=own.super_d + 64)
+                           super_d=own.super_d + 64,
+                           scan_bytes=own_sp.scan_bytes_padded + 4096)
     assert own.super_g > 2 and own.tile_auto == "super"
     plan = pipeline.build_plan(stream, pad_scans=(pad,))
     cfg = plan.signature.scans[0].cfg
     assert (cfg.lanes, cfg.tile_d, cfg.super_g, cfg.super_w, cfg.tile_auto,
-            cfg.group_du, cfg.super_d) == tuple(pad)
+            cfg.group_du, cfg.super_d,
+            plan.signature.scans[0].scan_bytes_padded) == tuple(pad)
     assert dataclasses.replace(cfg, **{f: getattr(own, f) for f in (
         "lanes", "tile_d", "super_g", "super_w", "tile_auto", "group_du",
         "super_d")}) == own
     _assert_golden([data], [pipeline.decode_jpeg_device(
         data, device="cpu", plan=plan)])
+    _assert_golden([data], [pipeline.decode_jpeg_device(
+        data, device="cpu", plan=pipeline.build_plan(
+            stream, host_destuff=False, pad_scans=(pad,)))])
     # the same floors under the records write path, in both tile shapes
     for tile_mode in ("super", "lane"):
         tiles = pipeline.build_plan(stream, tuning=T.Tuning(
             write_mode="tiles", tile_mode=tile_mode), pad_scans=(pad,))
         tcfg = tiles.signature.scans[0].cfg
         assert (tcfg.lanes, tcfg.tile_d, tcfg.super_g, tcfg.super_w,
-                tcfg.tile_auto, tcfg.group_du, tcfg.super_d) == tuple(pad)
+                tcfg.tile_auto, tcfg.group_du, tcfg.super_d,
+                tiles.signature.scans[0].scan_bytes_padded) == tuple(pad)
         _assert_golden([data], [pipeline.decode_jpeg_device(
             data, device="cpu", plan=tiles)])
 
 
 def test_group_pad_takes_the_group_floors():
-    """group_pad: the largest lane bucket and tile geometry, the smallest
-    supertile group, "lane" if any image takes it."""
-    plans = [pipeline.build_plan(T.parse(d)) for d in _mixed_lengths()]
+    """group_pad: the largest lane bucket, tile geometry and raw scan
+    buffer, the smallest supertile group, "lane" if any image takes it."""
+    plans = [pipeline.build_plan(T.parse(d))
+             for d in torch_cases.mixed_lengths()]
     cfgs = [p.signature.scans[0].cfg for p in plans]
+    raw = [p.signature.scans[0].scan_bytes_padded for p in plans]
+    assert len(set(raw)) > 1
     pad, = pipeline.group_pad(plans)
     assert pad == pipeline.ScanPad(
         lanes=max(c.lanes for c in cfgs), tile_d=max(c.tile_d for c in cfgs),
@@ -357,7 +359,7 @@ def test_group_pad_takes_the_group_floors():
         tile_auto=("lane" if any(c.tile_auto == "lane" for c in cfgs)
                    else "super"),
         group_du=max(c.group_du for c in cfgs),
-        super_d=max(c.super_d for c in cfgs))
+        super_d=max(c.super_d for c in cfgs), scan_bytes=max(raw))
     lane = [pipeline.build_plan(T.parse(encode(
         np.full((80, 96, 3), 128, np.uint8), EncodeSpec(quality=30))))]
     assert lane[0].signature.scans[0].cfg.tile_auto == "lane"
@@ -365,7 +367,8 @@ def test_group_pad_takes_the_group_floors():
 
 
 def test_geometry_key_erases_content_fields():
-    plans = [pipeline.build_plan(T.parse(d)) for d in _mixed_lengths()]
+    plans = [pipeline.build_plan(T.parse(d))
+             for d in torch_cases.mixed_lengths()]
     assert plans[0].signature != plans[1].signature
     assert (B._geometry_key(plans[0].signature)
             == B._geometry_key(plans[1].signature))

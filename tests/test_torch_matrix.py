@@ -20,13 +20,7 @@ from jpeggpu_tpu_torch.parallel import BatchDecoder
 
 import torch_cases
 
-NAMES = ([n for n, _ in torch_cases.MATRIX_SPECS]
-         + ["opt_huff_q97", "rand_420_rst2", "gray", "gray_rst3",
-            "noise_q98", "noise_q100", "four_component",
-            "four_component_non_interleaved", "tiny", "exact_mcu",
-            "saturated_table", "default", "flat", "per_scan_dht",
-            "per_scan_dht_rst5", "truncated_scan", "garbage_body",
-            "dnl_segment", "dangling_rst"])
+NAMES = torch_cases.MATRIX_NAMES
 # the records write path's subset, within the file's time: 4:2:0 with
 # restarts, optimal tables, a dense noise stream, a flat one whose lanes
 # drain through the leftover scatter, an empty last restart segment. The

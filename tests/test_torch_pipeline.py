@@ -187,21 +187,6 @@ def test_decoder_device_true_returns_tensors_on_its_device(data_420_rst2,
                for a, c, b in zip(planes, host, port_planes))
 
 
-@pytest.mark.parametrize("keyword", [dict(donate=True)], ids=["donate"])
-def test_decoder_unported_decode_keywords_raise_not_supported(data_420_rst2,
-                                                              keyword):
-    """The JAX package's decode keywords that the port does not do yet
-    raise NotSupported (status NOT_SUPPORTED), not TypeError; their
-    defaults decode."""
-    with T.Decoder(device="cpu") as d:
-        d.parse_header(data_420_rst2)
-        with pytest.raises(T.NotSupported) as err:
-            d.decode(**keyword)
-        assert err.value.status == T.Status.NOT_SUPPORTED
-        default = {k: not v for k, v in keyword.items()}
-        assert len(d.decode(**default)) == 3
-
-
 @pytest.mark.parametrize("name", torch_cases.CASES)
 def test_with_idct_false_matches_golden(test_image, name):
     """Decoder.decode(with_idct=False) and decode_jpeg_device(with_idct=
@@ -221,16 +206,6 @@ def test_with_idct_false_matches_golden(test_image, name):
         for a, b in zip(out, expect):
             assert a.dtype == b.dtype == np.int16 and a.shape == b.shape
             assert np.array_equal(a, b)
-
-
-def test_decoder_host_destuff_false_raises_not_supported(data_420_rst2):
-    """Decoder(host_destuff=False), the JAX package's device destuff, is not
-    ported: NotSupported; host_destuff=True is the default and decodes."""
-    with pytest.raises(T.NotSupported):
-        T.Decoder(device="cpu", host_destuff=False)
-    with T.Decoder(device="cpu", host_destuff=True) as d:
-        d.parse_header(data_420_rst2)
-        assert len(d.decode()) == 3
 
 
 def test_decoder_keep_on_device_is_gone(data_420_rst2):
@@ -280,6 +255,8 @@ def test_import_without_jax_triton_or_nvcc():
         "import jpeggpu_tpu_torch.parallel, jpeggpu_tpu_torch.parallel.segments\n"
         "import jpeggpu_tpu_torch.parallel.collectives\n"
         "import jpeggpu_tpu_torch.parallel.batch\n"
+        "import jpeggpu_tpu_torch.ops.destuff, jpeggpu_tpu_torch.debug\n"
+        "import jpeggpu_tpu_torch.decode_tool\n"
         "assert not jpeggpu_tpu_torch.kernels._functions\n"
         "assert sorted(T.__all__) == sorted(set(T.__all__))\n"
         "assert all(hasattr(T, n) for n in T.__all__)\n"

@@ -9,8 +9,10 @@ encoder. Imports no JAX.
   matrix (``tests/test_device_bitexact.py``: ``SPECS`` and the tests below
   it) and the four robustness streams of ``tests/test_robustness.py``
   that decode, made the same way from the images given
-  (``test_torch_matrix.py``; ``chip_smoke.py`` makes them from its own
-  images).
+  (``test_torch_matrix.py``, ``test_torch_api.py``; ``chip_smoke.py``
+  makes them from its own images); their names are ``MATRIX_NAMES``.
+- :func:`mixed_lengths`: three streams of one pixel geometry whose lengths
+  differ (``test_torch_batch.py``, ``test_torch_api.py``).
 """
 
 import numpy as np
@@ -123,6 +125,16 @@ def _robustness_streams(image):
             ("dnl_segment", with_dnl), ("dangling_rst", dangling)]
 
 
+# the names of matrix_streams, in its order
+MATRIX_NAMES = ([n for n, _ in MATRIX_SPECS]
+                + ["opt_huff_q97", "rand_420_rst2", "gray", "gray_rst3",
+                   "noise_q98", "noise_q100", "four_component",
+                   "four_component_non_interleaved", "tiny", "exact_mcu",
+                   "saturated_table", "default", "flat", "per_scan_dht",
+                   "per_scan_dht_rst5", "truncated_scan", "garbage_body",
+                   "dnl_segment", "dangling_rst"])
+
+
 def matrix_streams(image, noise):
     """(name, bytes) of every stream of the bit-exact matrix and the
     robustness streams that decode, from ``image`` (RGB, the JAX tests'
@@ -159,3 +171,14 @@ def matrix_streams(image, noise):
             table_ids=[(0, 0)] * 3, dht_per_scan=True, restart_interval=5))),
     ]
     return streams + _robustness_streams(image)
+
+
+def mixed_lengths():
+    """Three gray 256x256 images, restart interval 8 (one geometry), whose
+    streams differ in length: 1.3 KB, 66 KB, 29 KB. Their lane buckets
+    (256 / 768 / 256), tile geometry and raw scan buffers differ."""
+    flat = np.full((256, 256), 128, np.uint8)
+    noise = np.random.default_rng(5).integers(0, 255, (256, 256)).astype(
+        np.uint8)
+    return [encode(img, EncodeSpec(quality=q, restart_interval=8))
+            for img, q in ((flat, 30), (noise, 95), (noise, 50))]
