@@ -7,7 +7,8 @@ Drives `jpeggpu_tpu_torch` end to end and fails (non-zero exit, no result
 line) on the first phase that fails; nothing is caught and carried past:
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. builds the nine CUDA kernels from `jpeggpu_tpu_torch/kernels/csrc` and
+2. builds the nine CUDA kernels (K1 with its gathered mode) from
+   `jpeggpu_tpu_torch/kernels/csrc` and
    the native host destuffer (the run fails where that one is missing, so
    that every host time below is the native destuffer's);
 3. small streams made with the port's encoder from a numpy seed: the whole
@@ -116,6 +117,29 @@ line) on the first phase that fails; nothing is caught and carried past:
    streams with the device destuff (and a corrupted destuff caught),
    `python -m jpeggpu_tpu_torch.decode_tool`, and `debug.profile_trace`,
    whose trace must hold the `jpeggpu.*` ranges and the kernels' names;
+6e. the compacted sync tiers (`Tuning(sync_tiers="classic")` and
+   `"ladder"`, the JAX package's tiers): K1's gathered mode
+   (`ops.huffman.subseq_pass_at`, the pass of a compacted round) against
+   its plain version on made-up inputs at widths 32, 80 and 5120 (lane 0,
+   the last lane, segment firsts, inactive columns, both made-up tables);
+   every small stream under both shapes at tiny widths == golden; on both
+   12 MP images the states under both shapes == the Jacobi's, their
+   rounds `(it0, it)`, K1's launches by mode and host reads, the widest
+   tier's first gathered launch held against its plain version and timed
+   beside its bound, the gathered launches' device time, the decode under each
+   shape counted (K1 whole and gathered, K2, K3, nothing else) and ==
+   golden, and `sync_states` of the three in turns; a subsequence-granular
+   `decode_sharded` and the records path under the ladder == golden. The
+   default path's launches stay the Jacobi's (no gathered launch on any
+   other path);
+6f. the multi-process batch: `python -m jpeggpu_tpu_torch.parallel.
+   weakscale`'s `launch` with 1 and then 2 processes (gloo) on the one
+   card, each decoding 2 of the batch's 12 MP images through `MultiHostBatchDecoder`
+   and holding its planes against golden's SHA-256 (golden of a 12 MP
+   image is its strip's planes repeated, `tiled_golden`, checked against
+   golden of the whole image first);
+   process 0's launches counted, per-call ms of both runs. The two
+   processes time-slice one card: not a scaling result;
 7. one JSON line listing the kernels, the card's name and power limit, and
    the result line.
 
@@ -132,6 +156,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import pathlib
@@ -390,7 +415,7 @@ def phase_build(dev: torch.device) -> None:
              "jpeggpu_supertiles", "jpeggpu_expand_supertiles",
              "jpeggpu_tiles", "jpeggpu_expand_tiles",
              "jpeggpu_dequant_idct_planes")
-    for fn in built:
+    for fn in built + ("jpeggpu_subseq_pass_at",):
         kernels.get(fn)
     for entry in kernels.build_log:
         for line in entry.splitlines():
@@ -570,6 +595,46 @@ def k4_error(got, ref) -> int:
                max_abs_err(gated_records(*got), ref[0]))
 
 
+def gathered_inputs(cfg, ctx, rng, width: int):
+    """Made-up inputs of K1's gathered mode at `width` columns: lane 0,
+    the last lane, every segment first and the lanes beside it (as many
+    as fit), then lanes drawn at random (repeated where the width passes
+    the lanes), sorted; starts anywhere in the lane's subsequence from 31
+    bits before it (never before its segment) to past its end, or anywhere
+    in the next two, as a predecessor's state can be; data units and
+    zig-zag indices at random; a fifth of the columns inactive."""
+    lanes = cfg.lanes
+    firsts = np.flatnonzero(ctx.first_of_seg.cpu().numpy())
+    special = np.unique(np.clip(np.concatenate(
+        [[0, lanes - 1], firsts, firsts - 1, firsts + 1]), 0, lanes - 1))
+    idx = rng.integers(0, lanes, width)
+    idx[:min(width, special.size)] = special[:width]
+    idx = np.sort(idx).astype(np.int32)
+    rel = ctx.rel.cpu().numpy()[idx].astype(np.int64)
+    near = np.maximum(rel * 1024 + rng.integers(-31, 1024 + 40, width), 0)
+    far = (rel + 1) * 1024 - 31 + rng.integers(0, 2048, width)
+    sp = np.where(rng.random(width) < 0.2, far, near).astype(np.int32)
+    sc = rng.integers(0, cfg.du_per_mcu, width).astype(np.int32)
+    sz = rng.integers(0, 64, width).astype(np.int32)
+    active = rng.random(width) >= 0.2
+    dev = ctx.rel.device
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (idx, sp, sc, sz, active))
+
+
+def gathered_any_input(cfg, arrs, ctx, rng):
+    """K1's gathered mode against its plain version on made-up inputs at
+    the widths of the 12 MP image's tiers (32, 80, 5120): the largest
+    error and the widths."""
+    err, widths = 0, (32, 80, 5120)
+    for width in widths:
+        args = gathered_inputs(cfg, ctx, rng, width)
+        got = H.subseq_pass_at(cfg, arrs, ctx, *args)
+        ref = H.subseq_pass_at_plain(cfg, arrs, ctx, *args)
+        err = max(err, max(max_abs_err(a, b) for a, b in zip(got, ref)))
+    return err, widths
+
+
 def phase_entropy_kernels_any_input(dev: torch.device, seed: int) -> None:
     """K1, K2 and K4 against their plain versions on made-up inputs that no
     real stream has: random words, random previous-round states (some past
@@ -581,7 +646,8 @@ def phase_entropy_kernels_any_input(dev: torch.device, seed: int) -> None:
     states, states and flags; the whole sync_states against its plain
     version on CPU copies. K2 and K4: from the random states, with the
     offsets of the round that decoded from them (so that no two lanes write
-    one cell), and K4 again from the converged states."""
+    one cell), and K4 again from the converged states. K1's gathered mode
+    (`gathered_any_input`) at the widths of the compacted tiers."""
     rng = np.random.default_rng(seed + 5)
     cpu = torch.device("cpu")
     for kind in ("saturated", "garbage"):
@@ -657,7 +723,12 @@ def phase_entropy_kernels_any_input(dev: torch.device, seed: int) -> None:
                                       entry=entry)
             errs.append(k4_error(got, H.decode_write_emit_plain(
                 cfg, arrs, ctx, *states[:3], n_off, entry=entry)))
+            gerr, gwidths = gathered_any_input(cfg, arrs, ctx, rng)
+            errs.append(gerr)
             sync(dev)
+            log(f"K1's gathered mode on made-up inputs ({kind} tables, "
+                f"{'shard' if shard else 'scan'}): widths {gwidths}, "
+                f"max_abs_err {gerr} against its plain version")
             log(f"K1 / K2 / K4 on made-up inputs ({kind} tables, fast_tables "
                 f"{cfg.fast_tables}, {'shard with entry' if shard else 'scan'}"
                 f"): max_abs_err {max(errs)} against the plain versions; "
@@ -984,7 +1055,7 @@ def records_path_kernels(dev, card, plan, arrs, ctx, states, coeffs, symbols,
 WRAPPERS = (H.subseq_pass, H.decode_write, I.idct_stream_to_planes,
             H.decode_write_emit, W.supertiles_from_records,
             W.expand_supertiles, W.tiles_from_records, W.expand_tiles,
-            I.dequant_idct_planes)
+            I.dequant_idct_planes, H.subseq_pass_at)
 # the records path's wrappers -> their kernels' names in a profile
 RECORDS_KERNEL_SYMBOLS = {
     "decode_write_emit": "::emit_pass_kernel",
@@ -996,6 +1067,9 @@ RECORDS_KERNEL_SYMBOLS = {
 SUPER_KERNELS = ("supertiles_from_records", "expand_supertiles")
 LANE_KERNELS = ("tiles_from_records", "expand_tiles")
 SHARDED_KERNELS = ("dequant_idct_planes",)
+# K1's gathered mode: the compacted sync tiers, only under a plan whose
+# tuning names them (phase_sync_tiers)
+TIER_KERNELS = ("subseq_pass_at",)
 
 
 def counted(fn):
@@ -1079,7 +1153,7 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
             and launches["decode_write"] == 1
             and k3_once(launches, by_slot, n_comps)
             and not any(launches[k] for k in records_kernels + LANE_KERNELS
-                        + SHARDED_KERNELS)):
+                        + SHARDED_KERNELS + TIER_KERNELS)):
         raise AssertionError(f"the default path must launch K1 once per "
                              f"sync round, K2 once and K3 once for all "
                              f"components, and no other kernel: {launches} "
@@ -1107,7 +1181,8 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
         f"lane(s)")
     if not (tlaunches["subseq_pass"] >= 2 and tlaunches["decode_write"] == 0
             and all(tlaunches[k] == 1 for k in records_kernels)
-            and not any(tlaunches[k] for k in LANE_KERNELS + SHARDED_KERNELS)
+            and not any(tlaunches[k] for k in LANE_KERNELS + SHARDED_KERNELS
+                        + TIER_KERNELS)
             and k3_once(tlaunches, tby_slot, n_comps)):
         raise AssertionError(f"the records path must launch K1, K4, K5, K6 "
                              f"and K3 once, and not K2, K7 or K8: {tlaunches} "
@@ -1531,7 +1606,7 @@ def phase_lane_path(dev: torch.device, data: bytes, card: str):
             and all(launches[k] == 1
                     for k in ("decode_write_emit",) + LANE_KERNELS)
             and not any(launches[k] for k in ("decode_write",) + SUPER_KERNELS
-                        + SHARDED_KERNELS)
+                        + SHARDED_KERNELS + TIER_KERNELS)
             and k3_once(launches, by_slot, n_comps)):
         raise AssertionError(f"the per-lane path must launch K1, K4, K7, K8 "
                              f"and K3 once, and not K2, K5 or K6: {launches} "
@@ -2128,7 +2203,7 @@ def phase_sharded_path(dev: torch.device, data: bytes, card: str, mesh,
             and launches["subseq_pass"] >= 2 * mesh.size
             and launches["idct_stream_to_planes"] == 0
             and not any(launches[k] for k in ("decode_write_emit",)
-                        + SUPER_KERNELS + LANE_KERNELS)):
+                        + SUPER_KERNELS + LANE_KERNELS + TIER_KERNELS)):
         raise AssertionError(f"the sharded path must launch K1, K2 once per "
                              f"shard and K9 once per shard, "
                              f"and no other kernel: {launches}")
@@ -2518,7 +2593,8 @@ def phase_batch_path(dev: torch.device, card: str, datas, merged_state):
             and len(by_slot) == len(sp.comps)
             and all(v == B for v in by_slot.values())
             and not any(launches[k] for k in ("decode_write_emit",)
-                        + SUPER_KERNELS + LANE_KERNELS + SHARDED_KERNELS)):
+                        + SUPER_KERNELS + LANE_KERNELS + SHARDED_KERNELS
+                        + TIER_KERNELS)):
         raise AssertionError(f"the batch must be one merged group launching "
                              f"K1 once per merged round ({rounds}), K2 once "
                              f"and K3 once per image, and no other kernel: "
@@ -2645,7 +2721,8 @@ def phase_batch_routes(dev: torch.device, card: str, datas, sparse,
                 and all(tl[k] == 1 for k in ("decode_write_emit",)
                         + SUPER_KERNELS)
                 and tl["idct_stream_to_planes"] == B
-                and not any(tl[k] for k in LANE_KERNELS + SHARDED_KERNELS)):
+                and not any(tl[k] for k in LANE_KERNELS + SHARDED_KERNELS
+                        + TIER_KERNELS)):
             raise AssertionError(f"the dense batch's records path must "
                                  f"launch K4, K5 and K6 once and K3 per "
                                  f"image: {tl}")
@@ -2680,7 +2757,7 @@ def phase_batch_routes(dev: torch.device, card: str, datas, sparse,
                         + LANE_KERNELS)
                 and ll["idct_stream_to_planes"] == len(sparse)
                 and not any(ll[k] for k in ("decode_write",) + SUPER_KERNELS
-                            + SHARDED_KERNELS)):
+                            + SHARDED_KERNELS + TIER_KERNELS)):
             raise AssertionError(f"the sparse batch must launch K4, K7 and "
                                  f"K8 once and K3 per image: {ll}")
         for i, (got, expect) in enumerate(zip(out, sparse_singles)):
@@ -2723,10 +2800,307 @@ def phase_batch_routes(dev: torch.device, card: str, datas, sparse,
     return tl, tby, ll, lby, worst(dense_errs, sparse_errs, *mesh_errs)
 
 
+# --- the compacted sync tiers and the multi-process batch --------------------
+
+CLASSIC_T = T.Tuning(sync_tiers="classic")
+LADDER_T = T.Tuning(sync_tiers="ladder")
+# widths small enough that the small streams' few lanes reach compacted
+# rounds
+TINY_TIERS = {"classic": T.Tuning(sync_tiers="classic", frontier_width=4,
+                                  head_width=2, tail_width=1),
+              "ladder": T.Tuning(sync_tiers="ladder", frontier_width=32)}
+
+
+def tiled_golden(strip: bytes):
+    """Golden's planes of the image that `repeat_strip(strip, FULL_H)`
+    makes: each MCU row is a restart segment of its own, so the image's
+    planes are the strip's, repeated (golden decodes only the strip)."""
+    planes = golden.decode(strip)
+    rows, height = T.parse(strip).size_y, FULL_H
+    if height % rows:
+        raise AssertionError("the image is not a whole number of strips")
+    return [np.tile(p, (height // rows, 1)) for p in planes]
+
+
+def phase_sync_tiers_small_streams(dev: torch.device, seed: int) -> None:
+    """Every small stream decoded on the card under both tier shapes at
+    tiny widths (`TINY_TIERS`) == golden; K1's gathered mode must run."""
+    streams = small_streams(seed)
+    expect = [golden.decode(d) for _, d in streams]
+    for shape, tun in TINY_TIERS.items():
+        gathered = 0
+        for (name, data), want in zip(streams, expect):
+            plan = pipeline.build_plan(T.parse(data), tuning=tun)
+            planes, counts, _ = counted(lambda: pipeline.decode_jpeg_device(
+                data, device=dev, plan=plan))
+            check_equal_numpy(f"{name} under the {shape} tiers", planes, want)
+            gathered += counts["subseq_pass_at"]
+        log(f"small streams: all {len(streams)} under the {shape} tiers "
+            f"(frontier_width {tun.frontier_width}) on {dev.type} == golden; "
+            f"{gathered} launches of K1's gathered mode")
+        if not gathered:
+            raise AssertionError(f"the {shape} tiers never compacted a round "
+                                 f"on the small streams")
+
+
+def pass_symbols(cfg, arrs, ctx, idx, sp, sc, sz, active) -> int:
+    """Symbols that K1's gathered mode decodes on these inputs (its plain
+    version's loop, counting commits): the work its bound counts."""
+    i = idx.to(torch.int64)
+    t = H._plain_operands(arrs, dataclasses.replace(
+        ctx, word_end=ctx.word_end[i], seg_base_bits=ctx.seg_base_bits[i],
+        end_subseq=ctx.end_subseq[i]))
+    p, c, z = (x.to(torch.int64) for x in (sp, sc, sz))
+    live = active & (p < t.end_subseq)
+    count = torch.zeros((), dtype=torch.int64, device=idx.device)
+    # a step with no live column changes nothing: read `live` back once
+    # every 32 steps
+    while bool(live.any()):
+        for _ in range(32):
+            p, c, z, _, _, live = H._symbol_step(cfg, t, p, c, z, live,
+                                                 need_value=False)
+            count += live.sum()
+    return int(count)
+
+
+def gathered_held(dev, card, label, cfg, arrs, ctx, calls):
+    """K1's gathered mode on the inputs of the first launch of the widest
+    tier that a tier sync ran: against its plain version, its warm time,
+    and its bound (33 operations per symbol of the active columns; bytes:
+    the columns' starts, lanes and outputs, each active column's 128-byte
+    subsequence and context, the symbol table's named slots). Every
+    gathered launch of the sync is timed by `tier_device_ms`."""
+    named = {s for g in cfg.comp_groups for s in g[1:]}
+    fixed = (2 * len(named) << H.SYMTAB_BITS) + nbytes(
+        arrs.maxcode, arrs.vsm, ctx.limits, arrs.huffval)
+    width = max(a[0].numel() for a in calls)
+    args = next(a for a in calls if a[0].numel() == width)
+
+    def launch():
+        return H.subseq_pass_at(cfg, arrs, ctx, *args)
+
+    got = launch()
+    t0 = time.perf_counter()
+    ref = H.subseq_pass_at_plain(cfg, arrs, ctx, *args)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+    ms, call_ms = time_ms(launch, dev)
+    active = int(args[4].sum())
+    symbols = pass_symbols(cfg, arrs, ctx, *args)
+    b_ms, b_by = bound(width * (4 * 4 + 1 + 4 * 4) + active * (128 + 12)
+                       + fixed, symbols * K1_OPS_PER_SYMBOL)
+    log(f"{label}: K1 gathered mode at width {width} ({active} active, "
+        f"{symbols} symbols): max_abs_err {err}, {ms:.4f} ms on the "
+        f"device with L2 warm ({call_ms:.4f} ms a single call), plain "
+        f"{plain_ms:.1f} ms, bound {b_ms:.5f} ms by {b_by}  [{card}]")
+    if err:
+        raise AssertionError(f"{label}: K1's gathered mode differs from "
+                             f"its plain version at width {width}")
+    return dict(width=width, active=active, symbols=symbols,
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def tier_device_ms(dev, fn):
+    """Device time of K1's whole rounds, of its gathered launches and of
+    all other device work in one run of `fn` (the profiler's): (full-round
+    ms, launches, gathered ms, launches, other ms, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # a first launch that the window may lose (seen once: one whole
+        # round fewer than the counted run's)
+        torch.zeros(1, device=dev)
+        sync(dev)
+        fn()
+        sync(dev)
+    full = [e.self_device_time_total / 1e3 for e in prof.events()
+            if on_card(e) and "subseq_pass_kernel" in e.name]
+    at = [e.self_device_time_total / 1e3 for e in prof.events()
+          if on_card(e) and "subseq_pass_at_kernel" in e.name]
+    other = [e.self_device_time_total / 1e3 for e in prof.events()
+             if on_card(e) and "subseq_pass" not in e.name]
+    return sum(full), len(full), sum(at), len(at), sum(other), len(other)
+
+
+def phase_sync_tiers(dev: torch.device, card: str, images):
+    """The compacted tiers on the 12 MP images (`images`: (label, data,
+    golden planes)), under `Tuning(sync_tiers="classic")` and
+    `Tuning(sync_tiers="ladder")` against the default Jacobi: states ==
+    the Jacobi's, round counts, K1 launches by mode, host reads, the
+    gathered launches held and timed, the device time of both modes; the
+    decode under each tier plan counted (K1 whole rounds and gathered,
+    K2, K3, nothing else) and == golden; then `sync_states`' host time of
+    the three in turns. Returns, by image label, what the `kernels` line
+    keeps."""
+    report = {}
+    for label, data, expect in images:
+        plan = pipeline.build_plan(T.parse(data))
+        arrs = pipeline.stage_inputs(pipeline.build_inputs(data, plan), plan,
+                                     dev)["scans"][0]
+        cfg = plan.signature.scans[0].cfg
+        ctx = H.make_ctx(cfg, arrs)
+        n_comps = len(plan.signature.scans[0].comps)
+        jac, jl, _ = counted(lambda: H.sync_states(cfg, arrs, ctx, diag=True))
+        log(f"{label}: Jacobi (default tuning): (it0, it) {jac[4:]}, K1 "
+            f"launches {jl['subseq_pass']} whole rounds, "
+            f"{jl['subseq_pass_at']} gathered, host reads {jac[4] + 1}; "
+            f"lanes {cfg.lanes}")
+        cfgs = {"jacobi": cfg}
+        report[label] = {}
+        for shape, tun in (("classic", CLASSIC_T), ("ladder", LADDER_T)):
+            tcfg = cfgs[shape] = dataclasses.replace(cfg, tuning=tun)
+            record = {"gathered": []}
+            out, sl, _ = counted(lambda: H.sync_states(
+                tcfg, arrs, ctx, diag=True, record=record))
+            calls, rounds = record["gathered"], record["rounds"]
+            err = max(max_abs_err(a, b) for a, b in zip(out[:4], jac[:4]))
+            reads = sum(v + 1 for v in rounds.values())
+            widths = sorted({a[0].numel() for a in calls}, reverse=True)
+            log(f"{label}, {shape} tiers: states max_abs_err {err} against "
+                f"the Jacobi; (it0, it) {out[4:]}, rounds by tier {rounds}; "
+                f"K1 launches {sl['subseq_pass']} whole rounds, "
+                f"{sl['subseq_pass_at']} gathered (widths {widths}); host "
+                f"reads {reads} (the Jacobi's {jac[4] + 1})")
+            if err or not sl["subseq_pass_at"]:
+                raise AssertionError(f"{label}, {shape} tiers: states differ "
+                                     f"from the Jacobi's, or no compacted "
+                                     f"round ran")
+            held = gathered_held(dev, card, f"{label}, {shape}", tcfg, arrs,
+                                 ctx, calls)
+            full_ms, nfull, at_ms, nat, other_ms, nother = tier_device_ms(
+                dev, lambda: H.sync_states(tcfg, arrs, ctx))
+            log(f"{label}, {shape} tiers: device time in one sync_states: "
+                f"{full_ms:.4f} ms in {nfull} whole rounds, {at_ms:.4f} ms in "
+                f"{nat} gathered launches, {other_ms:.4f} ms in {nother} "
+                f"other launches and copies (the rounds' bookkeeping, and "
+                f"the window's one-element warm-up)  [{card}]")
+            tplan = pipeline.build_plan(T.parse(data), tuning=tun)
+            planes, dl, dby = counted(lambda: pipeline.decode_jpeg_device(
+                data, device=dev, plan=tplan))
+            check_equal_numpy(f"{label} decode under the {shape} tiers",
+                              planes, expect)
+            if not (dl["subseq_pass_at"] == sl["subseq_pass_at"]
+                    and dl["subseq_pass"] == sl["subseq_pass"]
+                    and dl["decode_write"] == 1
+                    and k3_once(dl, dby, n_comps)
+                    and not any(dl[k] for k in ("decode_write_emit",)
+                                + SUPER_KERNELS + LANE_KERNELS
+                                + SHARDED_KERNELS)):
+                raise AssertionError(f"{label}: the decode under the {shape} "
+                                     f"tiers must launch K1 as its "
+                                     f"sync_states does, K2 and K3 once, and "
+                                     f"nothing else: {dl}")
+            log(f"{label}: decode under the {shape} tiers == golden; "
+                f"launches {dl}")
+            report[label][shape] = dict(
+                launches={k: v for k, v in dl.items() if v},
+                rounds=list(out[4:]), tier_rounds=rounds, host_reads=reads,
+                device_ms_whole_rounds=full_ms, device_ms_gathered=at_ms,
+                device_ms_other=other_ms, device_launches_other=nother,
+                gathered=[held])
+        times = {k: [] for k in cfgs}
+        order = list(cfgs)
+        for turn in range(6):
+            for k in (order if turn % 2 == 0 else order[::-1]):
+                times[k].append(host_ms(
+                    lambda: H.sync_states(cfgs[k], arrs, ctx), dev, reps=1)[0])
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"{label}: sync_states host ms, 6 turns each, median: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+            + f"  [{card}]")
+        for shape in ("classic", "ladder"):
+            report[label][shape]["sync_ms"] = med[shape]
+            report[label][shape]["sync_ms_jacobi"] = med["jacobi"]
+    return report
+
+
+def phase_sync_tiers_paths(dev: torch.device, data: bytes, expect, mesh):
+    """The tiers on the other paths of the quality-90 image: a
+    subsequence-granular `decode_sharded` under the ladder (K1's gathered
+    mode in every shard's sync, K9 once per shard) and the records write
+    path under the ladder, both == golden."""
+    plan = pipeline.build_plan(T.parse(data), tuning=LADDER_T)
+    st = SEG._stage(data, plan, 0, mesh, "subsequences")
+    blocks, launches, _ = counted(lambda: SEG.decode_scan_staged(st))
+    got = SEG.assemble(plan, {c[0]: b for c, b in zip(st.sp.comps, blocks)})
+    check_equal_numpy("12 MP subsequence shards under the ladder", got,
+                      expect)
+    if not (launches["subseq_pass_at"] > 0
+            and launches["dequant_idct_planes"] == mesh.size):
+        raise AssertionError(f"the sharded decode under the ladder must run "
+                             f"compacted rounds and K9 once per shard: "
+                             f"{launches}")
+    log(f"12 MP decode_sharded over {mesh.size} subsequence shards under the "
+        f"ladder == golden; launches {launches}, {st.outer_rounds} outer "
+        f"round(s)")
+    rplan = pipeline.build_plan(T.parse(data), tuning=dataclasses.replace(
+        LADDER_T, write_mode="tiles"))
+    planes, rl, _ = counted(lambda: pipeline.decode_jpeg_device(
+        data, device=dev, plan=rplan))
+    check_equal_numpy("12 MP records path under the ladder", planes, expect)
+    if not (rl["subseq_pass_at"] > 0 and rl["decode_write_emit"] == 1
+            and rl["decode_write"] == 0):
+        raise AssertionError(f"the records path under the ladder: {rl}")
+    log(f"12 MP records write path under the ladder == golden; launches {rl}")
+
+
+def phase_multihost(dev: torch.device, card: str, images):
+    """`parallel.weakscale` on the card: 1, then 2 processes (gloo, one
+    CUDA context each on the one card), each decoding 2 of the batch's
+    12 MP images through `MultiHostBatchDecoder`; every worker holds its
+    planes against the SHA-256 of golden's, which this process writes
+    beside the JPEGs. Both runs start their processes alike, so that their
+    times compare. Any worker's failure or timeout fails the run."""
+    from jpeggpu_tpu_torch.parallel import weakscale
+
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="jpeggpu_mh_") as tmp:
+        for k, (data, planes) in enumerate(images):
+            pathlib.Path(tmp, f"{k}.jpg").write_bytes(data)
+            pathlib.Path(tmp, f"{k}.sha256").write_text(
+                weakscale.planes_sha256(planes))
+        for n in (1, 2):
+            t0 = time.perf_counter()
+            r = weakscale.launch(n, "2", iters=5, device="cuda",
+                                 data_dir=tmp, timeout=300)
+            wall = time.perf_counter() - t0
+            lc = r["launches"]
+            log(f"multi-process decode, {n} process(es) x 2 images on "
+                f"{dev.type}: {r['per_process_s'] * 1e3:.2f} ms per call "
+                f"(process 0, mean of 5 timed calls, host staging and "
+                f"copy-out included), planes == golden in every "
+                f"process; process 0's launches {lc}; {wall:.1f} s with "
+                f"start-up  [{card}]")
+            if not (lc["subseq_pass"] >= 2 and lc["decode_write"] == 1
+                    and lc["idct_stream_to_planes"] == 2
+                    and not lc["subseq_pass_at"]):
+                raise AssertionError(f"a process of the multi-process batch "
+                                     f"must decode its 2 images as one merged "
+                                     f"decode: {lc}")
+            results[n] = r
+    ratio = results[1]["per_process_s"] / results[2]["per_process_s"]
+    log(f"multi-process decode: t(1)/t(2) = {ratio:.3f}; the two processes "
+        f"share the one card's SMs by time-slicing, so this is no scaling "
+        f"result  [{card}]")
+    return {n: r["per_process_s"] * 1e3 for n, r in results.items()}
+
+
+def timed(fn, *args, **kwargs):
+    """`fn(*args, **kwargs)`, its wall time logged after it."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
 def make_image(seed: int, quality: int, strip_rows: int = 9):
     """The 12 MP test image at `quality`: a strip of MCU rows encoded with
     the numpy encoder, and the image that repeats its restart segments.
-    Returns (strip, image)."""
+    Returns (strip, image), made once per set of arguments."""
     t0 = time.perf_counter()
     strip_img = synthetic_image(16 * strip_rows, FULL_W, seed)
     strip = encode(strip_img, EncodeSpec(
@@ -2748,18 +3122,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    card = phase_environment(dev)
-    phase_build(dev)
-    phase_small_streams(dev, args.seed)
-    phase_lane_kernels_any_input(dev, args.seed)
-    phase_entropy_kernels_any_input(dev, args.seed)
-    phase_k3_any_input(dev, args.seed)
-    phase_k9_any_input(dev, args.seed)
-    phase_sharded_small_streams(dev, args.seed)
-    phase_batch_small_streams(dev, args.seed)
-    phase_device_destuff_small_streams(dev, args.seed)
+    card = timed(phase_environment, dev)
+    timed(phase_build, dev)
+    timed(phase_small_streams, dev, args.seed)
+    timed(phase_lane_kernels_any_input, dev, args.seed)
+    timed(phase_entropy_kernels_any_input, dev, args.seed)
+    timed(phase_k3_any_input, dev, args.seed)
+    timed(phase_k9_any_input, dev, args.seed)
+    timed(phase_sharded_small_streams, dev, args.seed)
+    timed(phase_batch_small_streams, dev, args.seed)
+    timed(phase_device_destuff_small_streams, dev, args.seed)
+    timed(phase_sync_tiers_small_streams, dev, args.seed)
 
     strip, data = make_image(args.seed, QUALITY)
+    strip90 = strip
     golden_strip = repeat_strip(strip, 48)
     strip_planes = golden.decode(golden_strip)
     check_equal_numpy("strip vs golden", T.decode(golden_strip, device=dev),
@@ -2769,11 +3145,11 @@ def main() -> int:
     log(f"{FULL_W}x48 strip at full row width: decode on {dev.type} == golden "
         f"on the default path and through the records write path")
 
-    entries = phase_kernels(dev, data, card)
+    entries = timed(phase_kernels, dev, data, card)
     (launches, by_slot, tlaunches, tby_slot, decode_ms,
-     tiles_decode_ms) = phase_main_path(dev, data, card)
-    per_symbol, k3_times, records_times = phase_where_time_goes(
-        dev, data, card, decode_ms, tiles_decode_ms)
+     tiles_decode_ms) = timed(phase_main_path, dev, data, card)
+    per_symbol, k3_times, records_times = timed(
+        phase_where_time_goes, dev, data, card, decode_ms, tiles_decode_ms)
     k3, = (e for e in entries if e["name"] == "idct_stream_to_planes")
     k3["ms_in_decode"] = k3_times
     k3["ms_in_decode_records_path"] = records_times.get(
@@ -2790,8 +3166,9 @@ def main() -> int:
                       golden.decode(golden_strip))
     log(f"{FULL_W}x48 sparse strip: decode on {dev.type} through "
         f"tile_mode='auto' == golden")
-    entries += lane_path_kernels(dev, sparse, card)
-    llaunches, lby_slot, lane_times = phase_lane_path(dev, sparse, card)
+    entries += timed(lane_path_kernels, dev, sparse, card)
+    llaunches, lby_slot, lane_times = timed(phase_lane_path, dev, sparse,
+                                            card)
     k3["ms_in_decode_lane_path"] = lane_times.get(
         "::idct_stream_to_planes_kernel", [])
     for e in entries:
@@ -2811,27 +3188,41 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     check_equal_numpy("12 MP default path vs golden",
                       T.decode(data, device=dev), expect)
-    dlaunches, dby_slot = phase_device_destuff_path(
-        dev, card, data, f"quality {QUALITY}")
-    phase_device_destuff_path(dev, card, sparse, f"quality {QUALITY_SPARSE}")
-    phase_api(dev, card, data, sparse, expect, args.seed)
+    check_equal_numpy("golden of the strip, repeated, vs golden",
+                      tiled_golden(strip90), expect)
+    sparse_expect = tiled_golden(strip)
+    log("golden of the 12 MP images from their strips: the strip's planes "
+        "repeated == golden of the whole image (quality 90)")
+    tiers = timed(phase_sync_tiers, dev, card, [
+        (f"quality {QUALITY}", data, expect),
+        (f"quality {QUALITY_SPARSE}", sparse, sparse_expect)])
+    dlaunches, dby_slot = timed(phase_device_destuff_path, dev, card, data,
+                                f"quality {QUALITY}")
+    timed(phase_device_destuff_path, dev, card, sparse,
+          f"quality {QUALITY_SPARSE}")
+    timed(phase_api, dev, card, data, sparse, expect, args.seed)
     mesh = make_mesh([dev] * SHARDS)
-    k9 = sharded_kernels(dev, data, card, mesh)
-    slaunches, sby_slot = phase_sharded_path(dev, data, card, mesh, expect)
-    k9["ms_in_decode"] = phase_sharded_times(dev, data, card, mesh)
+    k9 = timed(sharded_kernels, dev, data, card, mesh)
+    slaunches, sby_slot = timed(phase_sharded_path, dev, data, card, mesh,
+                                expect)
+    k9["ms_in_decode"] = timed(phase_sharded_times, dev, data, card, mesh)
     entries.append(k9)
+    timed(phase_sync_tiers_paths, dev, data, expect, mesh)
 
     datas = batch_images(args.seed, QUALITY, BATCH, first=data)
-    merged_state = phase_batch_kernels(dev, card, datas)
-    phase_batch_widths(dev, card, datas)
-    blaunches, bby_slot, btimes, k1_batch, k2_batch = phase_batch_path(
-        dev, card, datas, merged_state)
+    merged_state = timed(phase_batch_kernels, dev, card, datas)
+    timed(phase_batch_widths, dev, card, datas)
+    blaunches, bby_slot, btimes, k1_batch, k2_batch = timed(
+        phase_batch_path, dev, card, datas, merged_state)
     sparse_datas = batch_images(args.seed, QUALITY_SPARSE, BATCH_SPARSE,
                                 first=sparse)
     (tblaunches, tbby_slot, lblaunches, lbby_slot,
-     route_errs) = phase_batch_routes(dev, card, datas, sparse_datas,
-                                      merged_state[3])
+     route_errs) = timed(phase_batch_routes, dev, card, datas, sparse_datas,
+                         merged_state[3])
     batch_errs = worst(merged_state[6], route_errs)
+    multihost_ms = timed(phase_multihost, dev, card, [(data, expect)] + [
+        (datas[k], tiled_golden(make_image(args.seed + k, QUALITY)[0]))
+        for k in range(1, 4)])
     for e in entries:
         key = f"::{e['name']}_kernel"
         if key in btimes:
@@ -2870,6 +3261,30 @@ def main() -> int:
                                        (tblaunches, tbby_slot),
                                        (lblaunches, lbby_slot))]
         e["launches_batch_path"] = next((v for v in on_batch if v), 0)
+    k1, = (e for e in entries if e["name"] == "subseq_pass")
+    held = [dict(g, image=label, shape=shape)
+            for label, shapes in tiers.items()
+            for shape, r in shapes.items() for g in r["gathered"]]
+    # the quality-90 image's widest launch of the ladder (the card's auto
+    # shape)
+    widest = next(g for g in held if g["shape"] == "ladder")
+    k1.update(
+        # K1's gathered mode (jpeggpu_subseq_pass_at in the same source):
+        # the compacted tiers' launches on both 12 MP images, per shape
+        launches_sync_tiers_path={
+            f"{label}, {shape}": r["launches"]
+            for label, shapes in tiers.items()
+            for shape, r in shapes.items()},
+        max_abs_err_gathered=max(g["max_abs_err"] for g in held),
+        ms_gathered=widest["ms"], plain_ms_gathered=widest["plain_ms"],
+        bound_ms_gathered=widest["bound_ms"],
+        bound_by_gathered=widest["bound_by"],
+        width_gathered=widest["width"], gathered_held=held,
+        sync_tiers={label: {shape: {k: v for k, v in r.items()
+                                    if k != "gathered"}
+                            for shape, r in shapes.items()}
+                    for label, shapes in tiers.items()},
+        multi_process_ms_per_call=multihost_ms)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

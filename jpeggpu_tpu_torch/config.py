@@ -1,6 +1,7 @@
 """Typed decode-tuning configuration.
 
-Every knob of the device write stage that the package honours lives in one
+Every knob of the device sync and write stages that the package honours
+lives in one
 frozen dataclass that rides inside the static
 :class:`~jpeggpu_tpu_torch.ops.huffman.ScanConfig`; a plan built under a
 tuning carries it to every stage (``pipeline.build_plan(stream,
@@ -14,7 +15,7 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class Tuning:
-    """Static tuning knobs of the device write stage.
+    """Static tuning knobs of the device sync and write stages.
 
     Attributes:
       write_mode: "fused" | "tiles", coefficient materialisation. "fused"
@@ -44,6 +45,39 @@ class Tuning:
         resolved by ``build_plan``): lanes per supertile (a power of two),
         data-unit rows per supertile (a multiple of 8), and supertiles per
         expand window.
+
+    The compacted synchronisation tiers of ``ops.huffman.sync_states``
+    (the JAX package's fields, defaults and validation):
+      frontier_width: lanes of the widest compacted tier; the
+        synchronisation runs full-width rounds while more lanes than this
+        are mis-synced (0 = auto).
+      chain_follow: subsequences a compacted round re-decodes per
+        mis-synced chain, each phase starting from the previous phase's
+        fresh state (0 = auto).
+      head_width: chain heads of the classic narrow tier (0 = auto:
+        ``frontier_width // chain_follow``).
+      wide_follow: chain-follow depth of the classic wide tier and of the
+        ladder's tiers above 512 lanes (0 = 1).
+      tail_width, tail_follow: heads and depth of the classic tail tier
+        (0 = 64 and 4).
+      sync_tiers: "auto" | "classic" | "ladder", the shape of the tiers.
+        "classic" is a wide tier at ``frontier_width``, a narrow one at
+        ``head_width`` and a tail; "ladder" one tier per halving width from
+        ``frontier_width`` down to 32-127 lanes.
+
+    How they resolve (``ops.huffman._resolve_sync_tiers``): with all seven
+    at their auto values (``sync_tiers="auto"``, the rest 0), the
+    synchronisation is full-width Jacobi rounds to convergence, one K1
+    launch a round: the JAX package's ``frontier_width=0`` mode. The JAX
+    package's auto values were measured on a TPU, where a full round costs
+    about as much as the tiers' compacted rounds together; the card has its
+    own K1 round, and the tiers stay an option measured there. Where a
+    tuning names any of the seven, the tiers run, resolved as the JAX
+    package resolves them on the same kind of device: on CPU tensors as on
+    its CPU backend ("classic", ``chain_follow`` auto 1), on CUDA tensors as
+    on its accelerator ("ladder", ``chain_follow`` auto 2), and
+    ``frontier_width`` auto as ``max(128, lanes // 4)`` for the ladder and
+    ``max(2048, lanes // 12)`` for the classic tiers.
     """
 
     write_mode: str = "fused"
@@ -54,6 +88,13 @@ class Tuning:
     super_g: int = 0
     super_d: int = 0
     super_w: int = 0
+    frontier_width: int = 0
+    chain_follow: int = 0
+    head_width: int = 0
+    wide_follow: int = 0
+    tail_width: int = 0
+    tail_follow: int = 0
+    sync_tiers: str = "auto"
 
     def __post_init__(self):
         if self.write_mode not in ("fused", "tiles"):
@@ -76,9 +117,29 @@ class Tuning:
             raise ValueError("write_chunk must be positive")
         if self.s_trim <= 0 or self.s_trim % 128:
             raise ValueError("s_trim must be a positive multiple of 128")
+        for name in SYNC_FIELDS[:-1]:
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0 (0 = auto)")
+        if self.sync_tiers not in ("auto", "classic", "ladder"):
+            raise ValueError(
+                f"sync_tiers must be auto|classic|ladder, "
+                f"got {self.sync_tiers!r}")
+
+    @property
+    def names_sync_tiers(self) -> bool:
+        """Whether any of the seven fields of the compacted tiers is set:
+        then ``sync_states`` runs the tiers, else the Jacobi rounds."""
+        return any(getattr(self, name) != getattr(_AUTO, name)
+                   for name in SYNC_FIELDS)
 
 
-_default = Tuning()
+# the fields of the compacted synchronisation tiers
+SYNC_FIELDS = ("frontier_width", "chain_follow", "head_width", "wide_follow",
+               "tail_width", "tail_follow", "sync_tiers")
+
+
+_AUTO = Tuning()
+_default = _AUTO
 
 
 def default_tuning() -> Tuning:

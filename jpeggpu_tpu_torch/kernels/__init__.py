@@ -9,7 +9,8 @@ started together, in the package's build directory, and loaded with
 imported: a machine with no ``nvcc`` can import the package and run the
 plain versions on CPU tensors.
 
-Nine kernels: the whole sync round (``subseq_pass.cu``), the direct writing
+Nine kernels: the whole sync round (``subseq_pass.cu``, which also holds
+its gathered mode, the pass of a compacted sync round), the direct writing
 decode (``decode_write.cu``), the stream -> planes tail of a scan
 (``idct_stream.cu``, one launch for all its components), the records
 write path: the emitting decode
@@ -52,11 +53,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
 
-# C function -> (source file, headers it includes, argtypes)
+# C function -> (source file, headers it includes, argtypes); a source
+# that holds two functions is built once
 _KERNELS = {
     "jpeggpu_subseq_pass": (
         "subseq_pass.cu", ("huffman_common.cuh",),
         [_P] * 20 + [_U64] + [_I] * 3 + [_P]),
+    "jpeggpu_subseq_pass_at": (
+        "subseq_pass.cu", ("huffman_common.cuh",),
+        [_P] * 18 + [_U64] + [_I] * 3 + [_P]),
     "jpeggpu_decode_write": (
         "decode_write.cu", ("huffman_common.cuh",),
         [_P] * 17 + [_U64] + [_I] * 3 + [_P]),
@@ -104,11 +109,13 @@ def _build_and_load() -> None:
     t0 = time.perf_counter()
     libs = {}
     running = []
-    for fn_name, (src, headers, _) in _KERNELS.items():
+    for src, headers, _ in _KERNELS.values():
+        if src in libs:
+            continue
         src_path = os.path.join(_CSRC, src)
         deps = [src_path] + [os.path.join(_CSRC, h) for h in headers]
-        so_path = library_path(fn_name, deps, NVCC_FLAGS)
-        libs[fn_name] = so_path
+        so_path = library_path(os.path.splitext(src)[0], deps, NVCC_FLAGS)
+        libs[src] = so_path
         if os.path.exists(so_path):
             continue
         tmp = f"{so_path}.tmp{os.getpid()}"
@@ -126,9 +133,9 @@ def _build_and_load() -> None:
             failures.append(f"{src}:\n{out}")
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
-    for fn_name, so_path in libs.items():
-        fn = getattr(ctypes.CDLL(so_path), fn_name)
-        fn.argtypes = _KERNELS[fn_name][2]
+    for fn_name, (src, _, argtypes) in _KERNELS.items():
+        fn = getattr(ctypes.CDLL(libs[src]), fn_name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _functions[fn_name] = fn
     build_seconds = time.perf_counter() - t0

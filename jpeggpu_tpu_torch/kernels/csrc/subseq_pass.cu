@@ -130,7 +130,117 @@ subseq_pass_kernel(const uint32_t* __restrict__ words,
   if (__any_sync(0xffffffffu, raise) && (threadIdx.x & 31) == 0) *flag = 1;
 }
 
+// K1's gathered mode: the pass of a compacted sync round
+// (ops/huffman.py subseq_pass_at; the Pallas kernel behind
+// `jpeggpu_tpu/ops/huffman_pallas.py: subseq_pass` run on the context that
+// `make_ctx_gatherer` compacts to the frontier's lanes). Column i decodes
+// the subsequence of lane idx[i] from the explicit start (sp, sc, sz)[i]
+// where active[i], with the symbol loop above; an inactive column keeps its
+// start with n = 0. The caller resolves the start (a chain head's
+// predecessor state, `entry`, or the previous phase's fresh state), so
+// there is no flag and no entry here. The gather is the kernel's own
+// indexed load of the lane's word_end, seg_base_bits and end_subseq; its
+// words come through the same BitReader. What bounds it: the slowest
+// column's symbols, as for the whole round, at a width of 32 to 5120
+// columns instead of the scan's lanes.
+template <bool FAST>
+__global__ void __launch_bounds__(kEntropyBlock)
+subseq_pass_at_kernel(const uint32_t* __restrict__ words,
+                      const int32_t* __restrict__ word_end,
+                      const int32_t* __restrict__ seg_base_bits,
+                      const int32_t* __restrict__ end_subseq,
+                      const int32_t* __restrict__ idx,
+                      const int32_t* __restrict__ sp,
+                      const int32_t* __restrict__ sc,
+                      const int32_t* __restrict__ sz,
+                      const uint8_t* __restrict__ active,
+                      const int16_t* __restrict__ symtab,
+                      const int32_t* __restrict__ maxcode,
+                      const int32_t* __restrict__ vsm,
+                      const int32_t* __restrict__ limits,
+                      const int32_t* __restrict__ huffval,
+                      int32_t* __restrict__ p_out, int32_t* __restrict__ c_out,
+                      int32_t* __restrict__ z_out, int32_t* __restrict__ n_out,
+                      uint64_t pairs, int width, int du_per_mcu) {
+  __shared__ SymbolTable tab;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < width;
+  int p = 0;
+  int c = 0;
+  int z = 0;
+  int lane = 0;
+  bool live = false;
+  if (in) {
+    p = sp[i];
+    c = sc[i];
+    z = sz[i];
+    lane = idx[i];
+    live = active[i] != 0;
+  }
+  load_symbol_table<FAST>(tab, symtab, maxcode, vsm, limits, huffval, pairs,
+                          du_per_mcu);
+
+  int n = 0;
+  if (live) {
+    const int end = end_subseq[lane];
+    if (p < end) {
+      const int base = seg_base_bits[lane];
+      BitReader br;
+      br.words = words;
+      br.word_end = word_end[lane];
+      br.seek(base + p);
+      UnitSlots u(pairs, du_per_mcu, c, z);
+      while (true) {
+        const Symbol s = next_symbol<FAST, false>(tab, br, u.off, u.z, base, p);
+        if (p + s.length > end) break;  // belongs to the next subsequence
+        p += s.length;
+        n += s.run + 1;
+        u.advance(s.run);
+      }
+      c = u.c;
+      z = u.z;
+    }
+  }
+  if (in) {
+    p_out[i] = p;
+    c_out[i] = c;
+    z_out[i] = z;
+    n_out[i] = n;
+  }
+}
+
 }  // namespace jpeggpu
+
+extern "C" int jpeggpu_subseq_pass_at(
+    const void* words, const void* word_end, const void* seg_base_bits,
+    const void* end_subseq, const void* idx, const void* sp, const void* sc,
+    const void* sz, const void* active, const void* symtab,
+    const void* maxcode, const void* vsm, const void* limits,
+    const void* huffval, void* p_out, void* c_out, void* z_out, void* n_out,
+    unsigned long long pairs, int width, int du_per_mcu, int fast_tables,
+    void* stream) {
+  using namespace jpeggpu;
+  const dim3 block(kEntropyBlock);
+  const dim3 grid((width + kEntropyBlock - 1) / kEntropyBlock);
+  auto* kernel = fast_tables ? subseq_pass_at_kernel<true>
+                             : subseq_pass_at_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words),
+      static_cast<const int32_t*>(word_end),
+      static_cast<const int32_t*>(seg_base_bits),
+      static_cast<const int32_t*>(end_subseq),
+      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(sp),
+      static_cast<const int32_t*>(sc), static_cast<const int32_t*>(sz),
+      static_cast<const uint8_t*>(active),
+      static_cast<const int16_t*>(symtab),
+      static_cast<const int32_t*>(maxcode), static_cast<const int32_t*>(vsm),
+      static_cast<const int32_t*>(limits),
+      static_cast<const int32_t*>(huffval), static_cast<int32_t*>(p_out),
+      static_cast<int32_t*>(c_out), static_cast<int32_t*>(z_out),
+      static_cast<int32_t*>(n_out), static_cast<uint64_t>(pairs), width,
+      du_per_mcu);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int jpeggpu_subseq_pass(
     const void* words, const void* word_end, const void* seg_base_bits,

@@ -657,34 +657,329 @@ def _enter(ctx: Ctx, starts, entry):
     return tuple(out)
 
 
-def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, entry=None):
+# --- K1's gathered mode: one pass over a compacted set of lanes -------------
+
+def subseq_pass_at_plain(cfg, arrs, ctx, idx, sp, sc, sz, active):
+    """Plain version of :func:`subseq_pass_at`: :func:`decode_pass_plain`
+    over the context gathered by ``idx``."""
+    i = idx.to(torch.int64)
+    gathered = dataclasses.replace(
+        ctx, word_end=ctx.word_end[i], seg_base_bits=ctx.seg_base_bits[i],
+        end_subseq=ctx.end_subseq[i])
+    return decode_pass_plain(cfg, arrs, gathered, sp, sc, sz, active)
+
+
+def subseq_pass_at(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx, idx, sp, sc,
+                   sz, active):
+    """One decode pass over a gathered set of lanes, the pass of a
+    compacted sync round: column i decodes the subsequence of lane
+    ``idx[i]`` (int32, in ``[0, cfg.lanes)``) from the explicit start
+    ``(sp[i], sc[i], sz[i])`` where ``active[i]``, until its next symbol
+    would cross that lane's end. Returns int32 ``(p, c, z, n)`` of the
+    width of ``idx``; an inactive column keeps its start, with ``n`` 0.
+    An active start lies where a predecessor's end state can: at most 31
+    bits before the lane's subsequence and not before its segment (the
+    kernel reads no word before ``ScanArrays.lead_words``).
+
+    CUDA tensors: kernel K1 in its gathered mode
+    (``kernels/csrc/subseq_pass.cu``, ``jpeggpu_subseq_pass_at``; replaces
+    the Pallas kernel behind ``jpeggpu_tpu/ops/huffman_pallas.py:
+    subseq_pass`` run on a context that ``make_ctx_gatherer`` compacted),
+    one launch; the kernel reads the lane's context at ``idx[i]`` itself.
+    CPU tensors: the plain version.
+    """
+    dev = idx.device
+    if dev.type == "cpu":
+        return subseq_pass_at_plain(cfg, arrs, ctx, idx, sp, sc, sz, active)
+    if dev.type != "cuda":
+        raise ValueError(f"subseq_pass_at: unsupported device {dev}")
+    width = idx.numel()
+    i32 = torch.int32
+    _check_lane_tensors("subseq_pass_at", dev, width, idx=(idx, i32),
+                        sp=(sp, i32), sc=(sc, i32), sz=(sz, i32),
+                        active=(active, torch.bool))
+    _check_lane_tensors("subseq_pass_at", dev, cfg.lanes,
+                        word_end=(ctx.word_end, i32),
+                        seg_base_bits=(ctx.seg_base_bits, i32),
+                        end_subseq=(ctx.end_subseq, i32))
+    _check_lane_tensors("subseq_pass_at", dev,
+                        cfg.lanes * C.CHUNK_SIZE_WORDS,
+                        words=(arrs.words, i32))
+    out = torch.empty((4, width), dtype=i32, device=dev)
+    fn = kernels.get("jpeggpu_subseq_pass_at")
+    err = fn(arrs.words.data_ptr(), ctx.word_end.data_ptr(),
+             ctx.seg_base_bits.data_ptr(), ctx.end_subseq.data_ptr(),
+             idx.data_ptr(), sp.data_ptr(), sc.data_ptr(), sz.data_ptr(),
+             active.data_ptr(),
+             *_symtab_ptrs("subseq_pass_at", cfg, arrs, ctx, dev),
+             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+             out[3].data_ptr(), slot_pairs(cfg), width, cfg.du_per_mcu,
+             int(cfg.fast_tables), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "subseq_pass_at")
+    subseq_pass_at.launches += 1
+    return out[0], out[1], out[2], out[3]
+
+
+subseq_pass_at.launches = 0
+
+
+# --- the synchronisation -----------------------------------------------------
+
+def _resolve_sync_tiers(cfg: ScanConfig, dev: torch.device) -> Optional[str]:
+    """The shape of the compacted tiers that :func:`sync_states` runs on
+    ``dev``: None (full-width Jacobi rounds) where the plan's tuning names
+    none of the seven sync fields, else ``Tuning.sync_tiers``, whose "auto"
+    resolves as the JAX package's does on the same kind of device:
+    "classic" on the CPU, "ladder" on the card (see ``config.Tuning``)."""
+    t = cfg.tuning
+    if not t.names_sync_tiers:
+        return None
+    if t.sync_tiers != "auto":
+        return t.sync_tiers
+    return "classic" if dev.type == "cpu" else "ladder"
+
+
+def _resolve_frontier_width(cfg: ScanConfig, dev: torch.device) -> int:
+    """``Tuning.frontier_width``; 0 (auto) is 0, the Jacobi, where the
+    tuning names no sync field, else the JAX package's auto: lanes / 4 for
+    the ladder (its top tier is the compaction budget), lanes / 12 for the
+    classic tiers, so that the width scales with a merged batch's lanes."""
+    fw = cfg.tuning.frontier_width
+    if fw:
+        return fw
+    tiers = _resolve_sync_tiers(cfg, dev)
+    if tiers is None:
+        return 0
+    if tiers == "ladder":
+        return max(128, cfg.lanes // 4)
+    return max(2048, cfg.lanes // 12)
+
+
+def _compact_round(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx,
+                   st: torch.Tensor, head: torch.Tensor, follow: int, entry,
+                   launches: Optional[list] = None):
+    """One chain-follow round over the chain heads ``head`` (int32[width],
+    sorted, dead heads at the ``lanes`` sentinel), each advanced up to
+    ``follow`` columns; updates the states ``st`` (int32[4, lanes + slots],
+    rows p, c, z, n; the columns past ``lanes`` take the dropped writes)
+    in place and returns the next heads.
+
+    The port of ``compact_round`` (``jpeggpu_tpu/ops/huffman.py``): a chain
+    is bounded by the closest live head above, so its columns never meet
+    another chain's and the heads stay sorted and distinct; the chain stops
+    at its first column that is not a real lane or is a segment first
+    (past the head), and phase f starts from phase f-1's fresh end state,
+    the head from its predecessor's state of the previous round (``entry``
+    at lane 0). ``p``, ``c`` and ``z`` are written where they changed, ``n``
+    for every decoded column. The next head is the successor of the one
+    column that changed without its successor decoded in this round. One
+    launch of :func:`subseq_pass_at` a phase; no host read. ``launches``,
+    if a list, receives each launch's inputs ``(idx, sp, sc, sz, active)``
+    (copies)."""
+    lanes = cfg.lanes
+    width = head.numel()
+    dev = head.device
+    i32 = torch.int32
+    offs = torch.arange(follow, dtype=i32, device=dev)
+    alive = head < lanes
+    headc = head.clamp(0, lanes - 1)
+    # bound[j] = the closest live head above (dead heads never bound)
+    nxt = torch.cat([head[1:], head.new_full((1,), lanes)])
+    bound = torch.cummin(nxt.flip(0), 0).values.flip(0)
+    idx2 = headc[:, None] + offs[None, :]  # (width, follow) columns
+    idx2c = idx2.clamp(max=lanes - 1)
+    cols = idx2c.to(torch.int64)
+    okcol = (alive[:, None] & (idx2 < bound[:, None]) & (idx2 < lanes)
+             & ctx.lane_valid[cols]
+             & ((offs == 0)[None, :] | ~ctx.first_of_seg[cols]))
+    # chains stop at the first bad column (cumulative AND along f)
+    ok = torch.cumprod(okcol.to(i32), dim=1).bool()
+    p, c, z = st[0, :lanes], st[1, :lanes], st[2, :lanes]
+    prevh = (headc - 1).clamp(min=0).to(torch.int64)
+    sp, sc, sz = p[prevh], c[prevh], z[prevh]
+    if entry is not None:
+        at0 = headc == 0
+        sp, sc, sz = (torch.where(at0, e, s)
+                      for e, s in zip(entry, (sp, sc, sz)))
+    changed = alive  # heads always re-decode (their predecessor changed)
+    new, act, chs, mark = [], [], [], []
+    for f in range(follow):
+        colf = cols[:, f]
+        activef = ok[:, f] & changed
+        args = (idx2c[:, f].contiguous(), sp, sc, sz, activef)
+        if launches is not None:
+            launches.append(tuple(a.clone() for a in args))
+        p2, c2, z2, n2 = subseq_pass_at(cfg, arrs, ctx, *args)
+        ch = activef & ((p2 != p[colf]) | (c2 != c[colf]) | (z2 != z[colf]))
+        # the chain goes on past this round only from a changed column
+        # whose successor was not decoded as the next phase
+        nxt_dec = ok[:, f + 1] if f + 1 < follow else torch.zeros_like(ch)
+        new.append(torch.stack([p2, c2, z2, n2]))
+        act.append(activef)
+        chs.append(ch)
+        mark.append(ch & ~nxt_dec)
+        sp, sc, sz = p2, c2, z2
+        changed = ch
+    act, chs, mark = (torch.stack(t, 1) for t in (act, chs, mark))
+    new = torch.stack(new, 2).reshape(4, -1)  # (4, width * follow)
+    # decoded columns are disjoint; dropped ones go to distinct slots
+    # past `lanes`
+    drop = lanes + torch.arange(width * follow, dtype=i32,
+                                device=dev).reshape(width, follow)
+    upd_s = torch.where(chs, idx2c, drop).reshape(-1).to(torch.int64)
+    upd_n = torch.where(act, idx2c, drop).reshape(-1).to(torch.int64)
+    st[:3, upd_s] = new[:3]
+    st[3, upd_n] = new[3]
+    # next head = successor of the (single) marked column, kept only where
+    # it is a real lane and not a segment first
+    cand = torch.where(mark, idx2 + 1, 0).sum(1).to(i32)
+    candc = cand.clamp(max=lanes - 1).to(torch.int64)
+    keep = (mark.any(1) & (cand < lanes) & ctx.lane_valid[candc]
+            & ~ctx.first_of_seg[candc])
+    return torch.where(keep, cand, lanes)
+
+
+def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx,
+                frontier_width: Optional[int] = None, diag: bool = False,
+                entry=None, record: Optional[dict] = None):
     """Fixed-point synchronisation of subsequence decoder states.
 
     Round 0 decodes every subsequence speculatively ("blind"); round 1
     re-decodes every subsequence from its predecessor's end state (almost
-    all lanes self-synchronise here); further full-width rounds run until
-    no lane's predecessor changed. Every round is one :func:`subseq_pass`,
-    which raises that round's own convergence flag; reading it back is the
-    round's one host read. The flags are zeroed once, before the rounds.
+    all lanes self-synchronise here). Then one of two modes, resolved from
+    the plan's tuning (``config.Tuning``, :func:`_resolve_frontier_width`):
 
-    ``entry``, if given, is a ``(p, c, z)`` triple used as lane 0's
-    predecessor state when lane 0 is not a segment first: the boundary
-    state of a subsequence shard (parallel/segments.py), segment-relative
-    like every decoder state, so it transfers between shards unchanged.
+    - ``frontier_width`` 0, the default: full-width rounds until no lane's
+      predecessor changed. Every round is one :func:`subseq_pass`, which
+      raises that round's own convergence flag; reading it back is the
+      round's one host read.
+    - the compacted tiers of the JAX package: full-width rounds (one
+      :func:`subseq_pass` and a count of the frontier, its host read)
+      while more than ``frontier_width`` lanes have a predecessor that
+      changed, then chain-follow rounds (:func:`_compact_round`, one
+      :func:`subseq_pass_at` a phase) over the chain heads, in the tiers
+      of ``Tuning.sync_tiers``: "ladder", one tier per halving width, or
+      "classic", wide, narrow and tail tiers. A tier's rounds run while
+      more heads live than the next tier holds (one host read a round).
+
+    ``entry``, if given, is a ``(p, c, z)`` triple (or an int32[3] tensor)
+    used as lane 0's predecessor state when lane 0 is not a segment first:
+    the boundary state of a subsequence shard (parallel/segments.py),
+    segment-relative like every decoder state, so it transfers between
+    shards unchanged; lane 0 then never re-enters the frontier.
 
     Returns converged int32 (p, c, z, n) per subsequence: the state *after*
-    decoding subsequence i, with n its coefficient-position count.
+    decoding subsequence i, with n its coefficient-position count. With
+    ``diag`` also the JAX package's round counts ``(it0, it)``: the
+    full-width rounds after round 1 (and the classic wide tier's), and all
+    rounds after round 1. ``record``, if a dict, receives under "rounds"
+    the rounds after round 1 by tier ("full" for the full-width rounds,
+    "wide", "narrow" and "tail" for the classic tiers, "ladder <width>"),
+    and under "gathered", where it holds a list, the inputs of every
+    launch of :func:`subseq_pass_at`.
     """
     valid = ctx.lane_valid
-    entry = _entry_tensor(entry, valid.device)
-    flags = torch.zeros(cfg.lanes + 1, dtype=torch.int32, device=valid.device)
+    dev = valid.device
+    lanes = cfg.lanes
+    entry = _entry_tensor(entry, dev)
+    record = {} if record is None else record
+    launches = record.get("gathered")
+    if frontier_width is None:
+        frontier_width = _resolve_frontier_width(cfg, dev)
     p, c, z, n = subseq_pass(cfg, arrs, ctx, None, None, None, valid)
-    for r in range(cfg.lanes + 1):
-        p, c, z, n = subseq_pass(cfg, arrs, ctx, p, c, z, valid, entry=entry,
-                                 flag=flags[r:r + 1])
-        if not bool(flags[r]):
-            break
-    return p, c, z, n
+    if frontier_width == 0:
+        flags = torch.zeros(lanes + 1, dtype=torch.int32, device=dev)
+        for r in range(lanes + 1):
+            p, c, z, n = subseq_pass(cfg, arrs, ctx, p, c, z, valid,
+                                     entry=entry, flag=flags[r:r + 1])
+            if not bool(flags[r]):
+                break
+        record["rounds"] = {"full": r}
+        return (p, c, z, n, r, r) if diag else (p, c, z, n)
+
+    K = min(frontier_width, lanes)
+    lane = torch.arange(lanes, dtype=torch.int32, device=dev)
+    # lanes whose start comes from a predecessor that may change
+    frontier_ok = ~ctx.first_of_seg & valid
+    if entry is not None:
+        frontier_ok = frontier_ok & (lane > 0)
+
+    def full_round(p, c, z):
+        p2, c2, z2, n2 = subseq_pass(cfg, arrs, ctx, p, c, z, valid,
+                                     entry=entry)
+        delta = (p2 != p) | (c2 != c) | (z2 != z)
+        return p2, c2, z2, n2, torch.roll(delta, 1) & frontier_ok
+
+    # round 1, then phase A: full-width rounds while the frontier exceeds K
+    p, c, z, n, frontier = full_round(p, c, z)
+    it0 = 0
+    while it0 < lanes and int(frontier.sum()) > K:
+        p, c, z, n, frontier = full_round(p, c, z)
+        it0 += 1
+
+    t = cfg.tuning
+    F = t.chain_follow or (1 if dev.type == "cpu" else 2)
+    F = min(F, max(K, 1))
+    Fw = min(t.wide_follow or 1, max(K, 1))
+    Kc = min(t.head_width or max(1, K // F), lanes, max(K, 1))
+    Kt = t.tail_width or 64
+    Ft = min(t.tail_follow or 4, max(Kt, 1))
+    ladder = _resolve_sync_tiers(cfg, dev) == "ladder"
+    if ladder:
+        widths = []
+        w = K
+        while w >= 128:
+            widths.append(w)
+            w //= 2
+        widths.append(max(w, 32))
+        slots = max(wd * (Fw if wd > 512 else F) for wd in widths)
+    else:
+        slots = max(K * Fw, Kc * F, Kt * Ft)
+    st = torch.empty((4, lanes + slots), dtype=torch.int32, device=dev)
+    st[:, :lanes] = torch.stack([p, c, z, n])
+    # the first heads: the frontier's lanes in order, dead heads after
+    heads = torch.sort(torch.where(frontier, lane, lanes)).values
+
+    rounds = record["rounds"] = {"full": it0}
+
+    def tier(name, head, follow, live_above, it):
+        rounds[name] = 0
+        while it < lanes and int((head < lanes).sum()) > live_above:
+            head = _compact_round(cfg, arrs, ctx, st, head, follow, entry,
+                                  launches)
+            it += 1
+            rounds[name] += 1
+        return head, it
+
+    if ladder:
+        head = torch.cat([heads[:K], heads.new_full(
+            (max(widths[0] - K, 0),), lanes)])
+        it = it0
+        for i, wd in enumerate(widths):
+            nxt = widths[i + 1] if i + 1 < len(widths) else 0
+            head, it = tier(f"ladder {wd}", head, Fw if wd > 512 else F,
+                            nxt, it)
+            if nxt:
+                # the live heads, in their order, to the next width (a
+                # take, as in the JAX package; they are sorted already)
+                pos = torch.arange(wd, dtype=torch.int32, device=dev)
+                take = torch.sort(torch.where(head < lanes, pos, wd))
+                take = take.values[:nxt].to(torch.int64)
+                head = torch.where(take < wd, head[take.clamp(max=wd - 1)],
+                                   lanes)
+    else:
+        head = heads[:K]
+        if Kc < K:
+            # the wide tier: rounds at K heads while more than Kc live
+            head, it0 = tier("wide", head, Fw, Kc, it0)
+            head = torch.sort(head).values[:Kc]
+        has_tail = Kt < Kc
+        head, it = tier("narrow", head, F, Kt if has_tail else 0, it0)
+        if has_tail:
+            head, it = tier("tail", torch.sort(head).values[:Kt], Ft, 0,
+                            it)
+    p, c, z, n = st[:, :lanes]
+    return (p, c, z, n, it0, it) if diag else (p, c, z, n)
 
 
 def symbol_offsets(cfg: ScanConfig, arrs: ScanArrays,

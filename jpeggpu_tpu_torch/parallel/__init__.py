@@ -8,6 +8,10 @@ what the JAX package's collectives exchange through
 (:mod:`~jpeggpu_tpu_torch.parallel.segments`). A batch of images decodes
 through :class:`BatchDecoder` / :func:`decode_batch`
 (:mod:`~jpeggpu_tpu_torch.parallel.batch`), on one device or over a mesh.
+A batch that spans processes, each decoding its own images on its own
+devices, is :mod:`~jpeggpu_tpu_torch.parallel.multihost` (imported as a
+module, not exported here; its weak-scaling harness is
+:mod:`~jpeggpu_tpu_torch.parallel.weakscale`).
 """
 
 from __future__ import annotations

@@ -212,11 +212,14 @@ class BatchDecoder:
         self.device = None if mesh is not None else resolve_device(device)
         self.routes: List[Tuple[str, Tuple[int, ...]]] = []
 
-    def _groups(self, datas: Sequence[bytes]) -> List[_Group]:
-        """Parse, the preliminary plans, the groups by geometry, and the
-        padded plans; groups keyed by the padded signature."""
-        parsed = [parse(data) for data in datas]
-        prelim = [build_plan(s) for s in parsed]
+    def _groups(self, datas: Sequence[bytes],
+                prelim: Optional[List[DecodePlan]] = None) -> List[_Group]:
+        """Parse, the preliminary plans (``prelim``, if the caller has made
+        them already), the groups by geometry, and the padded plans; groups
+        keyed by the padded signature."""
+        if prelim is None:
+            prelim = [build_plan(parse(data)) for data in datas]
+        parsed = [plan.stream for plan in prelim]
         geo: Dict[PlanSignature, List[int]] = {}
         for i, plan in enumerate(prelim):
             geo.setdefault(_geometry_key(plan.signature), []).append(i)
@@ -261,14 +264,17 @@ class BatchDecoder:
         self.routes.append(("per_image", (i,)))
         return _to_numpy(planes)
 
-    def decode(self, datas: Sequence[bytes]) -> List[List[np.ndarray]]:
+    def decode(self, datas: Sequence[bytes],
+               prelim: Optional[List[DecodePlan]] = None
+               ) -> List[List[np.ndarray]]:
         """Decode a sequence of JPEGs; returns per image its component
         planes as numpy arrays, in input order: uint8 pixels, or with
         ``with_idct=False`` int16 coefficient planes, cropped to component
-        size."""
+        size. ``prelim`` are the images' plans from ``build_plan(parse(
+        data))``, where the caller has made them already."""
         self.routes = []
         results: List[Optional[List[np.ndarray]]] = [None] * len(datas)
-        for g in self._groups(datas):
+        for g in self._groups(datas, prelim):
             sig = g.plan.signature
             mergeable = self.merged and all(
                 _tables_shared([bi["scans"][s] for bi in g.inputs])

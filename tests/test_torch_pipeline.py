@@ -255,6 +255,8 @@ def test_import_without_jax_triton_or_nvcc():
         "import jpeggpu_tpu_torch.parallel, jpeggpu_tpu_torch.parallel.segments\n"
         "import jpeggpu_tpu_torch.parallel.collectives\n"
         "import jpeggpu_tpu_torch.parallel.batch\n"
+        "import jpeggpu_tpu_torch.parallel.multihost\n"
+        "import jpeggpu_tpu_torch.parallel.weakscale\n"
         "import jpeggpu_tpu_torch.ops.destuff, jpeggpu_tpu_torch.debug\n"
         "import jpeggpu_tpu_torch.decode_tool\n"
         "assert not jpeggpu_tpu_torch.kernels._functions\n"
