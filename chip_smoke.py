@@ -83,8 +83,13 @@ line) on the first phase that fails; nothing is caught and carried past:
    longest lane (in-decode time x `clocks.sm` from nvidia-smi, read while
    the card decodes, / the longest lane's symbols). The profiler's window
    of one `sync_states` must show one K1 launch per round and, besides the
-   one read per round, no more than a set-up of two launches; a profiler
-   that shows no device work fails the run. Then end-to-end ms and MP/s with
+   one read per round, no more than a set-up of two launches. Every
+   profiler window is bracketed by marker launches (`bench.profiled`): one
+   that lost its opening or closing markers, or all device work, is taken
+   again with more opening markers and the host idle longer at both ends,
+   up to four windows, and then fails the run; the number taken again is
+   logged at the end. Then
+   end-to-end ms and MP/s with
    and without host staging;
 6b. the batch path (`parallel/batch.py`): eight 12 MP images at quality
    90 (seeds seed .. seed+7) through `BatchDecoder(device=dev).decode`, one
@@ -140,6 +145,16 @@ line) on the first phase that fails; nothing is caught and carried past:
    golden of the whole image first);
    process 0's launches counted, per-call ms of both runs. The two
    processes time-slice one card: not a scaling result;
+6g. the bench (`python -m jpeggpu_tpu_torch.bench`, whose images this
+   script shares: `synthetic_image`, `repeat_strip`, `tiled_golden`,
+   `make_image`): each mode once at 12 MP with few iterations (the
+   headline, whose JSON line is printed, `--single`, `--e2e`, `--batch`,
+   `--all`, `--profile`), every timed output held against golden by the
+   bench's gate; the non-repeating full frame (`bench.frame_image`) ==
+   golden's SHA-256 on the default path, under `Tuning(write_mode="auto")`
+   (K2 launched, not K4), through the records path (`tile_mode="auto"`)
+   and with the device destuff; its sync rounds, symbols per lane and K1 /
+   K2 launches and ms beside the strip image's;
 7. one JSON line listing the kernels, the card's name and power limit, and
    the result line.
 
@@ -156,7 +171,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import gc
 import json
 import pathlib
@@ -172,7 +186,11 @@ import torch
 
 import jpeggpu_tpu_torch as T
 from jpeggpu_tpu_torch import constants as C
+from jpeggpu_tpu_torch import bench as BE
 from jpeggpu_tpu_torch import convert, golden, kernels, native, pipeline
+from jpeggpu_tpu_torch.bench import (FULL_H, FULL_W, QUALITY, device_work,
+                                     make_image, profiled, repeat_strip, smi,
+                                     synthetic_image, tiled_golden)
 from jpeggpu_tpu_torch.encoder import EncodeSpec, encode
 from jpeggpu_tpu_torch.ops import dc as DC
 from jpeggpu_tpu_torch.ops import destuff as DS
@@ -234,8 +252,6 @@ TILES = T.Tuning(write_mode="tiles", tile_mode="super")
 LANE = T.Tuning(write_mode="tiles", tile_mode="lane")
 AUTO = T.Tuning(write_mode="tiles")
 
-S420 = [(2, 2), (1, 1), (1, 1)]
-FULL_W, FULL_H, QUALITY = 4032, 3024, 90  # restart interval: one MCU row
 QUALITY_SPARSE = 30  # the same image with > 55 data units per subsequence
 SHARDS = 4  # shards of the sharded decode, all on the one card
 BATCH = 8  # images of the batch, the reference bench's default
@@ -247,46 +263,6 @@ def log(msg: str) -> None:
 
 
 # --- images -----------------------------------------------------------------
-
-def synthetic_image(h: int, w: int, seed: int, sigma: float = 4.2) -> np.ndarray:
-    """Photo-like RGB test image: a smooth random field (bilinear
-    interpolation of a coarse grid) plus Gaussian noise."""
-    rng = np.random.default_rng(seed)
-    grid = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3)).astype(np.float32)
-    ys = np.arange(h, dtype=np.float32) / 32.0
-    xs = np.arange(w, dtype=np.float32) / 32.0
-    y0, x0 = ys.astype(np.int64), xs.astype(np.int64)
-    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
-    top = grid[y0][:, x0] * (1 - fx) + grid[y0][:, x0 + 1] * fx
-    bot = grid[y0 + 1][:, x0] * (1 - fx) + grid[y0 + 1][:, x0 + 1] * fx
-    img = top * (1 - fy) + bot * fy + rng.normal(0, sigma, top.shape)
-    return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def repeat_strip(strip: bytes, height: int) -> bytes:
-    """A JPEG of `height` lines from a strip JPEG whose restart interval is
-    one MCU row: the strip's restart segments (independent by construction)
-    are repeated in turn, RSTn renumbered mod 8, the SOF height patched."""
-    stream = T.parse(strip)
-    scan, = stream.scans
-    assert stream.restart_interval == scan.num_mcus_x
-    rows = height // (8 * stream.ss_max_y)
-    assert rows * 8 * stream.ss_max_y == height
-    head = bytearray(strip[:scan.begin])
-    pos = 2
-    while head[pos + 1] != C.MARKER_SOF0:
-        pos += 2 + int.from_bytes(head[pos + 2:pos + 4], "big")
-    head[pos + 5:pos + 7] = height.to_bytes(2, "big")
-    body = strip[scan.begin:scan.end]
-    segs = [body[a:b] for a, b in scan.seg_raw]
-    out = bytearray(head)
-    for r in range(rows):
-        if r:
-            out += bytes([0xFF, C.MARKER_RST0 + ((r - 1) & 7)])
-        out += segs[r % len(segs)]
-    out += bytes([0xFF, C.MARKER_EOI])
-    return bytes(out)
-
 
 def small_streams(seed: int):
     """Every stream of the bit-exact matrix and the robustness streams that
@@ -1208,42 +1184,26 @@ def phase_main_path(dev: torch.device, data: bytes, card: str):
     return launches, by_slot, tlaunches, tby_slot, dev_only, tiles_dev_only
 
 
-def on_card(e) -> bool:
-    """A profiler event that is device work: a kernel or a copy, not the
-    device-side range of a `jpeggpu.*` scope (`debug.scope`), whose time
-    is that of the kernels inside it."""
-    from torch.autograd import DeviceType
-
-    return e.device_type == DeviceType.CUDA and not e.is_user_annotation
-
-
 def profile_decode(dev, card, label, run, decode_ms, own) -> None:
     """The device's busy and idle share of one decode (`run`), from the
     profiler's kernel times against `decode_ms`, the time of a decode from
     staged inputs without the profiler; and the time of each launch of the
     kernels named in `own`, which it returns by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        sync(dev)
-    on_device = [e for e in prof.key_averages()
-                 if on_card(e)]
-    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    if busy_ms <= 0:
-        log(f"{label}: device busy share of a decode: not measured (the "
-            "profiler reported no device time)")
-        return {}
+    events = profiled(dev, run)
+    by_name = {}
+    for e in events:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.self_device_time_total / 1e3, n + 1)
+    busy_ms = sum(ms for ms, _ in by_name.values())
     log(f"{label}: device busy {busy_ms:.3f} ms (kernel times from the "
         f"profiler) of a {decode_ms:.2f} ms decode from staged inputs: idle "
         f"share {1 - busy_ms / decode_ms:.2f}  [{card}]")
-    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"  {e.self_device_time_total / 1e3:.4f} ms x{e.count}  {e.key[:70]}")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"  {ms:.4f} ms x{n}  {name[:70]}")
     times = {}
     for name in own:
-        each = [e.self_device_time_total / 1e3 for e in prof.events()
-                if on_card(e) and name in e.name]
+        each = [e.self_device_time_total / 1e3 for e in events
+                if name in e.name]
         log(f"  inside the decode, {name.lstrip(':')} per launch, ms: "
             + " ".join(f"{t:.4f}" for t in each) + f"  [{card}]")
         times[name] = each
@@ -1394,14 +1354,6 @@ def symbol_escapes(cfg, arrs, ctx, states):
     return counts.tolist()
 
 
-def smi(query: str) -> str:
-    """One line of `nvidia-smi --query-gpu=<query>` for the card."""
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-
-
 def busy_sm_clock(dev: torch.device, work) -> float:
     """The SM clock in MHz, `clocks.sm` of nvidia-smi read while the card
     runs `work` again and again (an idle card reads its idle clock)."""
@@ -1428,21 +1380,11 @@ def sync_window(dev, card, cfg, arrs, ctx) -> None:
     """The profiler's device work inside one sync_states: one K1 launch per
     round and, besides, only a set-up that does not grow with the rounds
     (the flags' zero fill) and the one read per round."""
-    from torch.profiler import ProfilerActivity, profile
-
     _, counts, _ = counted(lambda: H.sync_states(cfg, arrs, ctx))
     rounds = counts["subseq_pass"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        H.sync_states(cfg, arrs, ctx)
-        sync(dev)
     names = {}
-    for e in prof.events():
-        if on_card(e):
-            names[e.name] = names.get(e.name, 0) + 1
-    if not names:
-        raise AssertionError("sync_states window: the profiler reported no "
-                             "device work, so the window cannot be checked")
+    for e in profiled(dev, lambda: H.sync_states(cfg, arrs, ctx)):
+        names[e.name] = names.get(e.name, 0) + 1
     k1 = sum(v for k, v in names.items() if "subseq_pass_kernel" in k)
     copies = sum(v for k, v in names.items() if "Memcpy" in k)
     other = {k[:60]: v for k, v in names.items()
@@ -1728,22 +1670,6 @@ def phase_device_destuff_small_streams(dev: torch.device, seed: int) -> None:
         log(f"small stream {name}: device destuff == host destuffer on every "
             f"scan; Decoder(host_destuff=False) on {dev.type} == golden on "
             f"the default path and the records write path")
-
-
-def device_work(dev: torch.device, run):
-    """(kernel name, device ms) of each launch the profiler sees in one
-    `run()`; fails where it sees none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        sync(dev)
-    out = [(e.name, e.self_device_time_total / 1e3) for e in prof.events()
-           if on_card(e)]
-    if not out:
-        raise AssertionError("the profiler saw no device work")
-    return out
 
 
 def peak_of(dev, host_destuff: bool, data: bytes, donate: bool = False):
@@ -2524,15 +2450,13 @@ def kernel_ms(dev, fn, symbol: str):
     """Device times of the launches of the kernel named `symbol` in three
     calls of `fn`, from the profiler (a read back to the host closes the
     window, as in a decode)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def run():
         for _ in range(3):
             fn()
         torch.ones(1, device=dev).sum().item()
-    return [e.self_device_time_total / 1e3 for e in prof.events()
-            if on_card(e) and symbol in e.name]
+
+    return [e.self_device_time_total / 1e3 for e in profiled(dev, run)
+            if symbol in e.name]
 
 
 def phase_batch_widths(dev: torch.device, card: str, datas) -> None:
@@ -2811,17 +2735,6 @@ TINY_TIERS = {"classic": T.Tuning(sync_tiers="classic", frontier_width=4,
               "ladder": T.Tuning(sync_tiers="ladder", frontier_width=32)}
 
 
-def tiled_golden(strip: bytes):
-    """Golden's planes of the image that `repeat_strip(strip, FULL_H)`
-    makes: each MCU row is a restart segment of its own, so the image's
-    planes are the strip's, repeated (golden decodes only the strip)."""
-    planes = golden.decode(strip)
-    rows, height = T.parse(strip).size_y, FULL_H
-    if height % rows:
-        raise AssertionError("the image is not a whole number of strips")
-    return [np.tile(p, (height // rows, 1)) for p in planes]
-
-
 def phase_sync_tiers_small_streams(dev: torch.device, seed: int) -> None:
     """Every small stream decoded on the card under both tier shapes at
     tiny widths (`TINY_TIERS`) == golden; K1's gathered mode must run."""
@@ -2906,22 +2819,13 @@ def tier_device_ms(dev, fn):
     """Device time of K1's whole rounds, of its gathered launches and of
     all other device work in one run of `fn` (the profiler's): (full-round
     ms, launches, gathered ms, launches, other ms, launches)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # a first launch that the window may lose (seen once: one whole
-        # round fewer than the counted run's)
-        torch.zeros(1, device=dev)
-        sync(dev)
-        fn()
-        sync(dev)
-    full = [e.self_device_time_total / 1e3 for e in prof.events()
-            if on_card(e) and "subseq_pass_kernel" in e.name]
-    at = [e.self_device_time_total / 1e3 for e in prof.events()
-          if on_card(e) and "subseq_pass_at_kernel" in e.name]
-    other = [e.self_device_time_total / 1e3 for e in prof.events()
-             if on_card(e) and "subseq_pass" not in e.name]
+    events = profiled(dev, fn)
+    full = [e.self_device_time_total / 1e3 for e in events
+            if "subseq_pass_kernel" in e.name]
+    at = [e.self_device_time_total / 1e3 for e in events
+          if "subseq_pass_at_kernel" in e.name]
+    other = [e.self_device_time_total / 1e3 for e in events
+             if "subseq_pass" not in e.name]
     return sum(full), len(full), sum(at), len(at), sum(other), len(other)
 
 
@@ -3088,28 +2992,92 @@ def phase_multihost(dev: torch.device, card: str, images):
     return {n: r["per_process_s"] * 1e3 for n, r in results.items()}
 
 
+# --- the bench --------------------------------------------------------------
+
+BENCH_ITERS = 3  # few iterations: the phase shows each mode runs and holds
+
+
+def bench_kernel(kernels, name: str):
+    """(launches, ms) of the kernels whose name holds `name` in a bench
+    result's ``device_kernels``."""
+    hits = [v for k, v in kernels.items() if name in k]
+    return sum(v["launches"] for v in hits), sum(v["ms"] for v in hits)
+
+
+def phase_bench(dev: torch.device, card: str, seed: int):
+    """Each mode of `python -m jpeggpu_tpu_torch.bench` once at 12 MP with
+    `BENCH_ITERS` iterations (the images cached in `.bench_cache`), every
+    timed output held against golden by the bench's gate; then the
+    non-repeating full frame == golden on the default path, under
+    `Tuning(write_mode="auto")` (K2, not K4), through the records path
+    (`tile_mode="auto"`) and with the device destuff, and its sync rounds,
+    symbols per lane and K1 / K2 launches and ms beside the strip image's.
+    Prints the headline's JSON line and returns it."""
+    cache = BE.CACHE
+    head = BE.run_headline(dev, BENCH_ITERS, seed, FULL_W, FULL_H, cache)
+    print(json.dumps(head), flush=True)
+    log(f"bench headline: {head['value']:.1f} MP/s from bytes "
+        f"(vs_baseline {head['vs_baseline']:.3f}), device "
+        f"{BE.fmt_ms(head['latency_device_ms'])} ms, busy "
+        f"{BE.fmt_ms(head['device_busy_ms'])} ms, stream "
+        f"{head['stream_mps']:.1f} MP/s, batch of {head['batch_size']} {head['batch_mps']:.1f} MP/s; "
+        f"PIL {head['pil_cpu_mps']}, nvJPEG {head['nvjpeg_mps']} MP/s  "
+        f"[{card}]")
+    for run in (BE.run_single, BE.run_e2e, BE.run_batch):
+        r = run(dev, BENCH_ITERS, seed, FULL_W, FULL_H, cache)
+        log(f"bench {run.__name__}: {r['metric']} = {r['value']:.1f} "
+            f"{r['unit']}  [{card}]")
+    r = BE.run_all(dev, BENCH_ITERS, seed, cache)
+    log("bench run_all: " + ", ".join(
+        f"{k} {v['mps']:.1f} MP/s ({v['vs_ref_size']:.3f} of the "
+        f"reference's)" for k, v in r["sizes"].items()) + f"  [{card}]")
+    with tempfile.TemporaryDirectory(prefix="jpeggpu_bench_") as tmp:
+        r = BE.run_profile(dev, tmp, seed, FULL_W, FULL_H, cache)
+        if len(r["traces"]) != 1:
+            raise AssertionError(f"--profile wrote {r['traces']}")
+    log("bench run_profile: one trace of a decode from bytes and one from "
+        "staged inputs, outputs == golden")
+
+    frame = BE.frame_image(seed, FULL_W, FULL_H, cache=cache)
+    gate = BE.Gate(frame)
+    gate(T.decode(frame.data, device=dev))
+    auto = pipeline.build_plan(T.parse(frame.data),
+                               tuning=T.Tuning(write_mode="auto"))
+    planes, la, _ = counted(lambda: pipeline.decode_jpeg_device(
+        frame.data, device=dev, plan=auto))
+    gate(planes)
+    if not (la["decode_write"] == 1 and la["decode_write_emit"] == 0):
+        raise AssertionError(f"write_mode='auto' must run K2 and not K4: "
+                             f"{la}")
+    gate(decode_tiles(frame.data, dev, AUTO))
+    with T.Decoder(device=dev, host_destuff=False) as d:
+        d.parse_header(frame.data)
+        gate(d.decode())
+    log(f"{frame.name} (encoder {frame.encoder}, {len(frame.data)} bytes): "
+        f"decode == golden's SHA-256 on the default path, under "
+        f"Tuning(write_mode='auto') (launches {la}), through the records "
+        f"path (tile_mode='auto') and with the device destuff")
+    for label, fields in (("strip image", head),
+                          ("full frame", head["frame"])):
+        k1 = bench_kernel(fields["device_kernels"], "subseq_pass_kernel")
+        k2 = bench_kernel(fields["device_kernels"], "decode_write_kernel")
+        log(f"{label} ({fields['image']}): {fields['sync_rounds']} sync "
+            f"rounds (K1 x{k1[0]}, {k1[1]:.4f} ms), K2 x{k2[0]} "
+            f"{k2[1]:.4f} ms; {fields['lanes']} lanes, {fields['symbols']} "
+            f"symbols, per lane at most {fields['symbols_per_lane_max']}, "
+            f"median {fields['symbols_per_lane_median']}; from bytes "
+            f"{fields['latency_from_bytes_ms']:.2f} ms, device "
+            f"{BE.fmt_ms(fields['latency_device_ms'])} ms, busy "
+            f"{BE.fmt_ms(fields['device_busy_ms'])} ms  [{card}]")
+    return head
+
+
 def timed(fn, *args, **kwargs):
     """`fn(*args, **kwargs)`, its wall time logged after it."""
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     log(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def make_image(seed: int, quality: int, strip_rows: int = 9):
-    """The 12 MP test image at `quality`: a strip of MCU rows encoded with
-    the numpy encoder, and the image that repeats its restart segments.
-    Returns (strip, image), made once per set of arguments."""
-    t0 = time.perf_counter()
-    strip_img = synthetic_image(16 * strip_rows, FULL_W, seed)
-    strip = encode(strip_img, EncodeSpec(
-        quality=quality, sampling=S420, restart_interval=FULL_W // 16))
-    data = repeat_strip(strip, FULL_H)
-    log(f"{FULL_W}x{FULL_H} JPEG at quality {quality}: {len(data)} bytes "
-        f"from a {strip_rows}-row strip, made in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return strip, data
 
 
 def main() -> int:
@@ -3189,8 +3157,8 @@ def main() -> int:
     check_equal_numpy("12 MP default path vs golden",
                       T.decode(data, device=dev), expect)
     check_equal_numpy("golden of the strip, repeated, vs golden",
-                      tiled_golden(strip90), expect)
-    sparse_expect = tiled_golden(strip)
+                      tiled_golden(strip90, FULL_H), expect)
+    sparse_expect = tiled_golden(strip, FULL_H)
     log("golden of the 12 MP images from their strips: the strip's planes "
         "repeated == golden of the whole image (quality 90)")
     tiers = timed(phase_sync_tiers, dev, card, [
@@ -3221,8 +3189,9 @@ def main() -> int:
                          merged_state[3])
     batch_errs = worst(merged_state[6], route_errs)
     multihost_ms = timed(phase_multihost, dev, card, [(data, expect)] + [
-        (datas[k], tiled_golden(make_image(args.seed + k, QUALITY)[0]))
+        (datas[k], tiled_golden(make_image(args.seed + k, QUALITY)[0], FULL_H))
         for k in range(1, 4)])
+    timed(phase_bench, dev, card, args.seed)
     for e in entries:
         key = f"::{e['name']}_kernel"
         if key in btimes:
@@ -3286,6 +3255,9 @@ def main() -> int:
                     for label, shapes in tiers.items()},
         multi_process_ms_per_call=multihost_ms)
 
+    log(f"profiler windows taken again for lost device events: "
+        f"{BE.windows_lost}; most opening markers lost in a window that "
+        f"counted: {BE.markers_lost_max}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     log(smi("name,power.limit"))

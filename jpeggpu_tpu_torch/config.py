@@ -18,13 +18,16 @@ class Tuning:
     """Static tuning knobs of the device sync and write stages.
 
     Attributes:
-      write_mode: "fused" | "tiles", coefficient materialisation. "fused"
-        (the default) is the single writing-decode kernel that stores
-        coefficients straight into the stream (``ops.huffman.decode_write``).
-        "tiles" is the records path (``ops.write.decode_write_tiles``): the
-        writing decode emits packed records, records become tiles, tiles
-        are expanded into the dense stream; lanes that do not fit their
-        tile drain through a scatter.
+      write_mode: "auto" | "fused" | "tiles", coefficient
+        materialisation. "fused" (the default) is the single writing-decode
+        kernel that stores coefficients straight into the stream
+        (``ops.huffman.decode_write``). "tiles" is the records path
+        (``ops.write.decode_write_tiles``): the writing decode emits packed
+        records, records become tiles, tiles are expanded into the dense
+        stream; lanes that do not fit their tile drain through a scatter.
+        "auto", the JAX package's default, resolves to "fused" on either
+        device (the faster write on the card), once, where the plan's
+        ``ScanConfig`` is made: no stage after it sees "auto".
       tile_mode: "auto" | "super" | "lane", shape of the records path's
         first assembly stage. "super" groups ``super_g`` consecutive lanes
         into one ``(super_d, 64)`` supertile and also yields the DC side
@@ -97,9 +100,10 @@ class Tuning:
     sync_tiers: str = "auto"
 
     def __post_init__(self):
-        if self.write_mode not in ("fused", "tiles"):
+        if self.write_mode not in ("auto", "fused", "tiles"):
             raise ValueError(
-                f"write_mode must be fused|tiles, got {self.write_mode!r}")
+                f"write_mode must be auto|fused|tiles, "
+                f"got {self.write_mode!r}")
         if self.tile_mode not in ("auto", "lane", "super"):
             raise ValueError(
                 f"tile_mode must be auto|lane|super, got {self.tile_mode!r}")

@@ -41,13 +41,11 @@ _TUNING_FIELDS = tuple(f.name for f in dataclasses.fields(Tuning))
 
 def tuning(source=None) -> Tuning:
     """A :class:`Tuning` from any object that carries fields of the same
-    names (a ``Tuning`` of the JAX package, say); fields it lacks, and a
-    ``write_mode`` this package does not have, keep the defaults."""
-    kwargs = {name: getattr(source, name) for name in _TUNING_FIELDS
-              if hasattr(source, name)}
-    if kwargs.get("write_mode") not in ("fused", "tiles"):
-        kwargs.pop("write_mode", None)
-    return Tuning(**kwargs)
+    names (a ``Tuning`` of the JAX package, say); fields it lacks keep the
+    defaults. A ``write_mode`` this package does not have ("scatter",
+    "matmul") raises, as ``Tuning`` does."""
+    return Tuning(**{name: getattr(source, name) for name in _TUNING_FIELDS
+                     if hasattr(source, name)})
 
 
 def scan_config(geometry: Mapping) -> ScanConfig:

@@ -86,6 +86,14 @@ class ScanConfig:
     tile_auto: str = "super"
     tuning: Tuning = Tuning()
 
+    def __post_init__(self):
+        # write_mode "auto" resolves here, once per plan: every stage after
+        # it (the write dispatch, its profiler range, the buffer size) sees
+        # the mode that runs
+        if self.tuning.write_mode == "auto":
+            object.__setattr__(self, "tuning", dataclasses.replace(
+                self.tuning, write_mode="fused"))
+
     @property
     def total_positions(self) -> int:
         return self.total_mcus * self.du_per_mcu * C.DATA_UNIT_SIZE

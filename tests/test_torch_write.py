@@ -384,18 +384,23 @@ def test_records_wrappers_refuse_other_devices():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(write_mode="scatter"), dict(tile_mode="wide"), dict(group_du=100),
+    dict(write_mode="scatter"), dict(write_mode="matmul"),
+    dict(tile_mode="wide"), dict(group_du=100),
     dict(group_du=-128), dict(super_g=3), dict(super_g=-2), dict(super_d=12),
     dict(super_w=-1), dict(write_chunk=0), dict(s_trim=0), dict(s_trim=200)])
 def test_tuning_validation(kwargs):
     """Tuning refuses what the reference's Tuning refuses, with the same
-    message for the fields both have."""
+    message for the fields both have. The reference's TPU write modes
+    "scatter" and "matmul" are refused, by ``Tuning`` and by
+    ``convert.tuning`` of a reference tuning that names them."""
     from jpeggpu_tpu.config import Tuning as JTuning
 
     with pytest.raises(ValueError) as port_err:
         T.Tuning(**kwargs)
     if "write_mode" in kwargs:  # the reference has more modes
-        assert "write_mode must be fused|tiles" in str(port_err.value)
+        assert "write_mode must be auto|fused|tiles" in str(port_err.value)
+        with pytest.raises(ValueError, match=r"auto\|fused\|tiles"):
+            convert.tuning(JTuning(**kwargs))
         return
     with pytest.raises(ValueError) as ref_err:
         JTuning(**kwargs)
@@ -414,11 +419,48 @@ def test_tuning_defaults_and_process_default():
         assert config.default_tuning() is _TILES
     finally:
         T.set_default_tuning(t)
-    # a reference tuning converts field by field; modes the port lacks
-    # fall back to its default
+    # a reference tuning converts field by field; its default write_mode
+    # "auto" passes through and resolves to "fused" in the plan
     from jpeggpu_tpu.config import Tuning as JTuning
 
     assert convert.tuning(JTuning(write_mode="tiles", tile_mode="super",
                                   s_trim=128)) == T.Tuning(
         write_mode="tiles", tile_mode="super", s_trim=128)
-    assert convert.tuning(JTuning()).write_mode == "fused"
+    ref_default = convert.tuning(JTuning())
+    assert ref_default.write_mode == "auto"
+    cfg = TH.ScanConfig(lanes=256, num_segments=1, du_per_mcu=6,
+                        mcus_per_seg=1, total_mcus=1, comp_groups=(),
+                        tuning=ref_default)
+    assert cfg.tuning == dataclasses.replace(ref_default, write_mode="fused")
+
+
+def test_write_mode_auto(port_stage, monkeypatch):
+    """Tuning(write_mode="auto"), the reference's default, resolves to the
+    direct write once, where the plan is built: every scan's config holds
+    "fused", the decode equals golden and the default path, and the write
+    stage runs K2 (one call, counted here through its plain version) and
+    none of K4."""
+    calls = {"decode_write": 0, "decode_write_emit": 0}
+
+    def counting(name):
+        plain = getattr(TH, f"{name}_plain")
+
+        def run(*args, **kwargs):
+            calls[name] += 1
+            return plain(*args, **kwargs)
+        return run
+
+    for name in calls:
+        monkeypatch.setattr(TH, f"{name}_plain", counting(name))
+    data = port_stage["data"]
+    plan = pipeline.build_plan(T.parse(data),
+                               tuning=T.Tuning(write_mode="auto"))
+    assert all(sp.cfg.tuning.write_mode == "fused"
+               for sp in plan.signature.scans)
+    planes = pipeline.decode_jpeg_device(data, device="cpu", plan=plan)
+    assert calls == {"decode_write": len(plan.signature.scans),
+                     "decode_write_emit": 0}
+    for got, expect, default in zip(planes, T.golden.decode(data),
+                                    T.decode(data, device="cpu")):
+        assert np.array_equal(got, expect)
+        assert np.array_equal(got, default)
