@@ -93,8 +93,10 @@ class Decoder:
 
     # -- phase 1: host-only header parse (jpeggpu.h:81-85) --
     def parse_header(self, data: bytes) -> ImgInfo:
-        stream = parse(data, log=self._log if self._logging else None)
-        self._plan = build_plan(stream, host_destuff=self._host_destuff)
+        with debug.scope("jpeggpu.parse", self._device):
+            stream = parse(data, log=self._log if self._logging else None)
+        with debug.scope("jpeggpu.plan", self._device):
+            self._plan = build_plan(stream, host_destuff=self._host_destuff)
         self._data = data
         self._staged = None
         self._device_inputs = None
@@ -171,7 +173,8 @@ class Decoder:
         out = self._decode_planes(with_idct, donate)
         if device:
             return list(out)
-        planes = [p.contiguous().cpu().numpy() for p in out]
+        with debug.scope("jpeggpu.to_host", self._device):
+            planes = [p.contiguous().cpu().numpy() for p in out]
         if debug.is_debug():
             self._debug_checks(planes, with_idct)
         return planes

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .config import Tuning
+from .debug import scope
 from .ops.huffman import ScanArrays, ScanConfig, build_symbol_table
 
 GEOMETRY_FIELDS = ("lanes", "num_segments", "du_per_mcu", "mcus_per_seg",
@@ -76,7 +77,9 @@ def symbol_table(maxcode, vsm, huffval, fast_tables: bool) -> torch.Tensor:
     of the packed tables under the plan's ``fast_tables``, as a CPU tensor
     of its own. Built once per distinct set of tables: most streams carry
     the same few (those of T.81 Annex K), and a build costs milliseconds
-    of eager tensor code on the host."""
+    of eager tensor code on the host. A build runs in a
+    ``jpeggpu.symtab`` range; ``_symbol_table.cache_info()`` counts the
+    hits and misses."""
     key = tuple(np.ascontiguousarray(a, np.int32).tobytes()
                 for a in (maxcode, vsm, huffval))
     return torch.from_numpy(_symbol_table(*key, bool(fast_tables)).copy())
@@ -88,8 +91,9 @@ def _symbol_table(maxcode: bytes, vsm: bytes, huffval: bytes,
     def i32(b):
         return np.frombuffer(b, np.int32).copy()
 
-    return build_symbol_table(i32(maxcode), i32(vsm), i32(huffval),
-                              fast_tables)
+    with scope("jpeggpu.symtab"):
+        return build_symbol_table(i32(maxcode), i32(vsm), i32(huffval),
+                                  fast_tables)
 
 
 def scan_arrays(scan_inputs: Mapping[str, np.ndarray],

@@ -15,9 +15,47 @@ checks (decode_destuff.cu:242-253, :328-341). When it is on,
 All checks raise :class:`jpeggpu_tpu_torch.errors.InternalError` on a
 mismatch.
 
-The decode stages run inside :func:`scope` ranges named ``jpeggpu.*``
-(destuff, sync, write.<mode>, dc, idct_fused, deinterleave, idct), which
-:func:`profile_trace` records.
+Tracing: every layer of the host path and every decode stage runs inside
+a :class:`scope` range, which :func:`profile_trace` (or any
+``torch.profiler`` window) records, and which is an NVTX range too where
+the stage knows its CUDA device (all but ``jpeggpu.inputs`` and
+``jpeggpu.symtab``). A range's parent is the range that encloses it on the
+same host thread; a batch's ranges share its ``jpeggpu.batch`` root. The
+names and what each covers:
+
+- ``jpeggpu.batch``: one ``BatchDecoder.decode`` call, the request's root;
+- ``jpeggpu.parse``: one image's header walk (``reader.parse``), in
+  ``BatchDecoder`` and ``Decoder.parse_header``;
+- ``jpeggpu.plan``: one ``pipeline.build_plan`` (a batch's preliminary
+  plan and a group's padded one; ``Decoder.parse_header``);
+- ``jpeggpu.group``: a batch's grouping: the geometry keys, each group's
+  ``group_pad`` and the check that its images share their tables;
+- ``jpeggpu.inputs``: one image's host staging (``pipeline.build_inputs``:
+  the native host destuff and the segment tables);
+- ``jpeggpu.merge``: one scan of a merged group (``merge_scan_inputs``);
+- ``jpeggpu.copy_in``: host arrays onto the device, symbol tables
+  included (``stage_merged``, ``pipeline.stage_inputs``, so also
+  ``Decoder.transfer``);
+- ``jpeggpu.symtab``: one symbol-table build, that is one miss of
+  ``convert._symbol_table``'s cache (its ``cache_info()`` counts hits and
+  misses);
+- ``jpeggpu.destuff``: the device destuff of a raw-staged scan;
+- ``jpeggpu.sync``: a scan's synchronisation (``make_ctx``,
+  ``sync_states``, ``symbol_offsets``): K1 once a round;
+- ``jpeggpu.sync.read``: one host read of a round's flag or count in
+  ``sync_states``, that is the round's wait for the device;
+- ``jpeggpu.write.<mode>``: the write stage (K2, or K4-K8 under "tiles");
+- ``jpeggpu.tail``: the tail of one scan of one image (``scan_planes``,
+  in ``decode_merged`` and ``decode_pipeline``);
+- inside it ``jpeggpu.dc``, the DC un-delta, and ``jpeggpu.idct_fused``
+  (K3), or with ``with_idct=False`` ``jpeggpu.deinterleave``; the sharded
+  tail (``parallel/segments.py``) has ``jpeggpu.dc``,
+  ``jpeggpu.deinterleave`` and ``jpeggpu.idct`` (K9) of its own;
+- ``jpeggpu.to_host``: planes copied to numpy (``BatchDecoder``,
+  ``Decoder.decode``), the wait for the device included.
+
+No range waits for the device but ``jpeggpu.sync.read`` and
+``jpeggpu.to_host``, which wrap waits the decode has anyway.
 """
 
 from __future__ import annotations
@@ -25,6 +63,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from typing import Optional
 
 import torch
 
@@ -43,20 +82,32 @@ def is_debug() -> bool:
 DEBUG_GOLDEN_MAX_PIXELS = 2_000_000
 
 
-@contextlib.contextmanager
-def scope(name: str, device: torch.device):
-    """A named range around one decode stage: a ``record_function`` range
-    for the profiler and, on a CUDA device, an NVTX range. Neither waits
+class scope:
+    """A named range around one stage, as a context manager: a
+    ``record_function`` range while a profiler records (none otherwise:
+    opening one costs microseconds of host time even when nothing records)
+    and, where ``device`` is a CUDA device, an NVTX range. Neither waits
     for the device."""
-    nvtx = device.type == "cuda"
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+
+    __slots__ = ("name", "nvtx", "ranged")
+
+    def __init__(self, name: str, device: Optional[torch.device] = None):
+        self.name = name
+        self.nvtx = device is not None and device.type == "cuda"
+        self.ranged = None
+
+    def __enter__(self) -> None:
+        if torch.autograd._profiler_enabled():
+            self.ranged = torch.profiler.record_function(self.name)
+            self.ranged.__enter__()
+        if self.nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+
+    def __exit__(self, *exc) -> None:
+        if self.nvtx:
+            torch.cuda.nvtx.range_pop()
+        if self.ranged is not None:
+            self.ranged.__exit__(*exc)
 
 
 @contextlib.contextmanager

@@ -847,6 +847,14 @@ def _compact_round(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx,
     return torch.where(keep, cand, lanes)
 
 
+def _read(t: torch.Tensor) -> int:
+    """A sync round's host read of a device scalar (its flag, or a count
+    of live lanes): the round's wait for the device, in a
+    ``jpeggpu.sync.read`` range."""
+    with scope("jpeggpu.sync.read", t.device):
+        return int(t)
+
+
 def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx,
                 frontier_width: Optional[int] = None, diag: bool = False,
                 entry=None, record: Optional[dict] = None):
@@ -900,7 +908,7 @@ def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx,
         for r in range(lanes + 1):
             p, c, z, n = subseq_pass(cfg, arrs, ctx, p, c, z, valid,
                                      entry=entry, flag=flags[r:r + 1])
-            if not bool(flags[r]):
+            if not _read(flags[r]):
                 break
         record["rounds"] = {"full": r}
         return (p, c, z, n, r, r) if diag else (p, c, z, n)
@@ -921,7 +929,7 @@ def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx,
     # round 1, then phase A: full-width rounds while the frontier exceeds K
     p, c, z, n, frontier = full_round(p, c, z)
     it0 = 0
-    while it0 < lanes and int(frontier.sum()) > K:
+    while it0 < lanes and _read(frontier.sum()) > K:
         p, c, z, n, frontier = full_round(p, c, z)
         it0 += 1
 
@@ -952,7 +960,7 @@ def sync_states(cfg: ScanConfig, arrs: ScanArrays, ctx: Ctx,
 
     def tier(name, head, follow, live_above, it):
         rounds[name] = 0
-        while it < lanes and int((head < lanes).sum()) > live_above:
+        while it < lanes and _read((head < lanes).sum()) > live_above:
             head = _compact_round(cfg, arrs, ctx, st, head, follow, entry,
                                   launches)
             it += 1

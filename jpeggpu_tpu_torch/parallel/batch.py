@@ -41,6 +41,7 @@ import torch
 
 from .. import constants as C
 from .. import convert
+from ..debug import scope
 from ..errors import InvalidArgument
 from ..ops.huffman import ScanArrays, decode_scan
 from ..pipeline import (DecodePlan, PlanSignature, ScanPlanStatic,
@@ -135,13 +136,16 @@ def stage_merged(sig: PlanSignature, inputs: List[Dict], device: torch.device
     ``device``. The symbol table is staged once, from image 0's tables."""
     scans = []
     for s, sp in enumerate(sig.scans):
-        m = merge_scan_inputs(sp, [i["scans"][s] for i in inputs])
-        scans.append(MergedScan(
-            arrs=convert.scan_arrays(m, device, sp.cfg.fast_tables),
-            pos_base=torch.from_numpy(m["pos_base"]).to(device),
-            pos_bound=torch.from_numpy(m["pos_bound"]).to(device)))
-    qtables = torch.from_numpy(np.stack([i["qtables"] for i in inputs]))
-    return scans, qtables.to(device)
+        with scope("jpeggpu.merge", device):
+            m = merge_scan_inputs(sp, [i["scans"][s] for i in inputs])
+        with scope("jpeggpu.copy_in", device):
+            scans.append(MergedScan(
+                arrs=convert.scan_arrays(m, device, sp.cfg.fast_tables),
+                pos_base=torch.from_numpy(m["pos_base"]).to(device),
+                pos_bound=torch.from_numpy(m["pos_bound"]).to(device)))
+    with scope("jpeggpu.copy_in", device):
+        qtables = torch.from_numpy(np.stack([i["qtables"] for i in inputs]))
+        return scans, qtables.to(device)
 
 
 def _merged_scan_coeffs(sp: ScanPlanStatic, ms: MergedScan, batch: int):
@@ -168,15 +172,17 @@ def decode_merged(sig: PlanSignature, scans: List[MergedScan],
         for b in range(batch):
             # image b's stream and DC are views at its offset
             dcb = None if dcd is None else dcd[b * tdu:(b + 1) * tdu]
-            planes = scan_planes(sp, coeffs[b * T:(b + 1) * T], dcb,
-                                 qtables[b], with_idct)
+            with scope("jpeggpu.tail", coeffs.device):
+                planes = scan_planes(sp, coeffs[b * T:(b + 1) * T], dcb,
+                                     qtables[b], with_idct)
             for c, plane in zip(sp.comps, planes):
                 pix[b][c[0]] = plane
     return [crop(sig, p) for p in pix]
 
 
 def _to_numpy(planes) -> List[np.ndarray]:
-    return [p.contiguous().cpu().numpy() for p in planes]
+    with scope("jpeggpu.to_host", planes[0].device):
+        return [p.contiguous().cpu().numpy() for p in planes]
 
 
 @dataclasses.dataclass
@@ -217,18 +223,29 @@ class BatchDecoder:
         """Parse, the preliminary plans (``prelim``, if the caller has made
         them already), the groups by geometry, and the padded plans; groups
         keyed by the padded signature."""
+        dev = self.device
         if prelim is None:
-            prelim = [build_plan(parse(data)) for data in datas]
+            prelim = []
+            for data in datas:
+                with scope("jpeggpu.parse", dev):
+                    stream = parse(data)
+                with scope("jpeggpu.plan", dev):
+                    prelim.append(build_plan(stream))
         parsed = [plan.stream for plan in prelim]
         geo: Dict[PlanSignature, List[int]] = {}
-        for i, plan in enumerate(prelim):
-            geo.setdefault(_geometry_key(plan.signature), []).append(i)
+        with scope("jpeggpu.group", dev):
+            for i, plan in enumerate(prelim):
+                geo.setdefault(_geometry_key(plan.signature), []).append(i)
         groups: Dict[PlanSignature, _Group] = {}
         for idxs in geo.values():
-            pad = group_pad([prelim[i] for i in idxs])
+            with scope("jpeggpu.group", dev):
+                pad = group_pad([prelim[i] for i in idxs])
             for i in idxs:
-                plan = (prelim[i] if len(idxs) == 1
-                        else build_plan(parsed[i], pad_scans=pad))
+                if len(idxs) == 1:
+                    plan = prelim[i]
+                else:
+                    with scope("jpeggpu.plan", dev):
+                        plan = build_plan(parsed[i], pad_scans=pad)
                 g = groups.get(plan.signature)
                 if g is None:
                     g = groups[plan.signature] = _Group(plan, [], [])
@@ -272,13 +289,20 @@ class BatchDecoder:
         ``with_idct=False`` int16 coefficient planes, cropped to component
         size. ``prelim`` are the images' plans from ``build_plan(parse(
         data))``, where the caller has made them already."""
+        with scope("jpeggpu.batch", self.device):
+            return self._decode(datas, prelim)
+
+    def _decode(self, datas: Sequence[bytes],
+                prelim: Optional[List[DecodePlan]]
+                ) -> List[List[np.ndarray]]:
         self.routes = []
         results: List[Optional[List[np.ndarray]]] = [None] * len(datas)
         for g in self._groups(datas, prelim):
             sig = g.plan.signature
-            mergeable = self.merged and all(
-                _tables_shared([bi["scans"][s] for bi in g.inputs])
-                for s in range(len(sig.scans)))
+            with scope("jpeggpu.group", self.device):
+                mergeable = self.merged and all(
+                    _tables_shared([bi["scans"][s] for bi in g.inputs])
+                    for s in range(len(sig.scans)))
             if mergeable and self.mesh is not None:
                 D = self.mesh.size
                 pad = (-len(g.inputs)) % D

@@ -23,7 +23,9 @@ plan built with ``host_destuff=False`` the raw scan bytes are staged and
 the chain starts with the device destuff (``ops/destuff.py``, tensor code).
 Each stage runs inside a ``debug.scope`` named as in the JAX package
 (``jpeggpu.destuff``, ``.sync``, ``.write.<mode>``, ``.dc``,
-``.idct_fused``, ``.deinterleave``).
+``.idct_fused``, ``.deinterleave``); the host staging and the tail of a
+scan have ranges of their own (``jpeggpu.inputs``, ``.copy_in``,
+``.tail``; :mod:`jpeggpu_tpu_torch.debug` lists them all).
 """
 
 from __future__ import annotations
@@ -334,8 +336,9 @@ def build_inputs(data: bytes | np.ndarray, plan: DecodePlan) -> Dict:
     buf = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
         else np.asarray(data, np.uint8)
     try:
-        scans = [build_scan_inputs(buf, scan, sp)
-                 for scan, sp in zip(plan.stream.scans, plan.signature.scans)]
+        with scope("jpeggpu.inputs"):
+            scans = [build_scan_inputs(buf, scan, sp) for scan, sp in
+                     zip(plan.stream.scans, plan.signature.scans)]
     except MemoryError as exc:
         raise OutOfHostMemory(
             f"host staging buffers exceed available memory: {exc}") from exc
@@ -347,11 +350,12 @@ def stage_inputs(inputs: Dict, plan: DecodePlan, device: torch.device) -> Dict:
     scan's symbol table under its plan's ``fast_tables``: the word stream,
     or for a scan planned with ``host_destuff=False`` its raw bytes, which
     :func:`destuffed` turns into words on the device."""
-    return dict(
-        scans=[convert.scan_arrays(s, device, sp.cfg.fast_tables)
-               for s, sp in zip(inputs["scans"], plan.signature.scans)],
-        qtables=torch.from_numpy(inputs["qtables"]).to(device),
-    )
+    with scope("jpeggpu.copy_in", device):
+        return dict(
+            scans=[convert.scan_arrays(s, device, sp.cfg.fast_tables)
+                   for s, sp in zip(inputs["scans"], plan.signature.scans)],
+            qtables=torch.from_numpy(inputs["qtables"]).to(device),
+        )
 
 
 def plan_buffer_size(plan: DecodePlan) -> int:
@@ -479,8 +483,9 @@ def decode_pipeline(signature: PlanSignature, scan_arrays: List[ScanArrays],
         # (None from the direct write, which has none)
         coeffs, dcd = decode_scan(sp.cfg, arrs, return_dc=True)
         del arrs
-        for c, plane in zip(sp.comps, scan_planes(sp, coeffs, dcd, qtables,
-                                                  with_idct)):
+        with scope("jpeggpu.tail", coeffs.device):
+            planes = scan_planes(sp, coeffs, dcd, qtables, with_idct)
+        for c, plane in zip(sp.comps, planes):
             pix[c[0]] = plane
     return crop(signature, pix)
 
