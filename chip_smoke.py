@@ -35,7 +35,11 @@ line) on the first phase that fails; nothing is caught and carried past:
    4:4:0, 4:1:1, 4:4:4, gray and non-interleaved geometries, MCU rows of
    1, R-1, R and R+1 MCUs for a run of R, coefficients and DC at +-32767
    and -32768, table bytes at and above 128; all components in one launch
-   and each alone) and K9 (made-up planes, one at a time and of mixed
+   and each alone, one image and a batch of three with their own tables;
+   `phase_k3_batch`: sixteen images of `imagenet_loader.b32`'s 500x375
+   shape in one launch, against the plain version and sixteen one-image
+   launches, timed warm and cold beside its byte bound and beside its
+   one-image launch) and K9 (made-up planes, one at a time and of mixed
    shapes in one launch);
 4. a 4032x3024 (12 MP) interleaved 4:2:0 JPEG, restart interval 252,
    quality 90, made from a seed: a strip of MCU rows is encoded with the
@@ -95,9 +99,10 @@ line) on the first phase that fails; nothing is caught and carried past:
    90 (seeds seed .. seed+7) through `BatchDecoder(device=dev).decode`, one
    merged group at 8 x lanes: K1 held against its plain version on a round
    at that width, K2 on the merged stream, K3 on the last image's slice of
-   it; the merged sync's rounds against each image's own; K1 and K2 at
+   it and the group's tail (one DC un-delta, one K3 launch) on all of it;
+   the merged sync's rounds against each image's own; K1 and K2 at
    widths of 1, 2, 4 and 8 images; the path counted (K1 once per merged
-   round, K2 once, K3 once per image, nothing else), each image == its own
+   round, K2 once, K3 once for the eight, nothing else), each image == its own
    decode; its times against the same images' single decodes in turns,
    its device busy share, its host stages and peak memory. Then the batch
    under `set_default_tuning(Tuning(write_mode="tiles"))` (supertiles on
@@ -1054,6 +1059,7 @@ def counted(fn):
     launches covered, by slot)."""
     for w in WRAPPERS:
         w.launches = 0
+    I.idct_stream_to_planes.images = 0
     I.idct_stream_to_planes.launches_by_slot.clear()
     out = fn()
     return (out, {w.__name__: w.launches for w in WRAPPERS},
@@ -2004,34 +2010,110 @@ def phase_k3_any_input(dev: torch.device, seed: int) -> None:
     for that many data units per MCU, so that rows end ragged, exactly or
     one past a run), 3 MCU rows; coefficients and DC at +-32767 and -32768
     beside random ones, table bytes at and above 128 (read as signed int8);
-    all components in one launch, and each alone."""
+    all components in one launch, and each alone, for one image and for a
+    batch of three, each image with its own tables."""
     rng = np.random.default_rng(seed)
     extremes = np.array([-32768, -32767, -1, 0, 1, 2, 32767], np.int16)
+    batch = 3
     for name, (dpm, comps) in STREAM_LAYOUTS.items():
         run_mcus = I.stream_runs(1, 1, dpm)[0]
         for mcus_x in (1, run_mcus - 1, run_mcus, run_mcus + 1):
-            mcus_y, units = 3, mcus_x * 3 * dpm
+            mcus_y = 3
+            units = batch * mcus_x * mcus_y * dpm
             coeffs = rng.choice(extremes, units * 64)
             coeffs[::2] = rng.integers(-32768, 32768, units * 32)
             dcv = rng.choice(extremes, units)
             dcv[::3] = rng.integers(-32768, 32768, len(dcv[::3]))
-            q = rng.integers(128, 256, (3, 64)).astype(np.int32)
-            q[:, ::3] = rng.integers(0, 128, (3, len(q[0, ::3])))
+            q = rng.integers(128, 256, (batch, 3, 64)).astype(np.int32)
+            q[:, :, ::3] = rng.integers(0, 128, q[:, :, ::3].shape)
             ct, dt, qt = (torch.from_numpy(a).to(dev)
                           for a in (coeffs, dcv, q))
+            one = units // batch
             err = 0
             for sel in (comps,) + tuple((c,) for c in comps):
-                args = (ct, qt, (mcus_x, mcus_y, sel), dpm, dt)
-                err = max([err] + [max_abs_err(a, b) for a, b in zip(
-                    I.idct_stream_to_planes(*args),
-                    I.idct_stream_to_planes_plain(*args))])
+                for args in ((ct[:one * 64], qt[0], (mcus_x, mcus_y, sel),
+                              dpm, dt[:one]),
+                             (ct, qt, (mcus_x, mcus_y, sel), dpm, dt)):
+                    err = max([err] + [max_abs_err(a, b) for a, b in zip(
+                        I.idct_stream_to_planes(*args),
+                        I.idct_stream_to_planes_plain(*args))])
             sync(dev)
             log(f"K3 on a made-up {name} stream, {mcus_x}x{mcus_y} MCUs "
                 f"(runs of {run_mcus}): max_abs_err {err} against the plain "
-                f"version, all components in one launch and each alone")
+                f"version, all components in one launch and each alone, "
+                f"one image and {batch} in one launch")
             if err:
                 raise AssertionError(f"K3 differs from its plain version on "
                                      f"a made-up {name} stream")
+
+
+# the batch of K3's batched launch and the shape of `imagenet_loader.b32`'s
+# largest group: 500x375 at 4:2:0 is 32x24 MCUs
+K3_BATCH, K3_BATCH_MCUS = 16, (32, 24)
+
+
+def phase_k3_batch(dev: torch.device, card: str, seed: int) -> dict:
+    """K3 at B=16 on the b32 shape, one launch for the sixteen images
+    (made-up streams, DC and tables, each image its own), against its
+    plain version on the card and against sixteen one-image launches;
+    warm and cold beside its byte bound, and its B=1 launch on image 0 of
+    the same streams. Returns the K3 entry's keys for the batch."""
+    B = K3_BATCH
+    mcus_x, mcus_y = K3_BATCH_MCUS
+    dpm, comps = STREAM_LAYOUTS["4:2:0"]
+    rng = np.random.default_rng(seed)
+    units = mcus_x * mcus_y * dpm
+    ct = torch.from_numpy(rng.integers(-1024, 1024, B * units * 64)
+                          .astype(np.int16)).to(dev)
+    dt = torch.from_numpy(rng.integers(-2048, 2048, B * units)
+                          .astype(np.int16)).to(dev)
+    qt = torch.from_numpy(rng.integers(1, 256, (B, 2, 64))
+                          .astype(np.int32)).to(dev)
+    geometry = (mcus_x, mcus_y, comps)
+    args = (ct, qt, geometry, dpm, dt)
+    one = (ct[:units * 64], qt[0], geometry, dpm, dt[:units])
+    planes, launches, _ = counted(lambda: I.idct_stream_to_planes(*args))
+    images = I.idct_stream_to_planes.images
+    singles = [I.idct_stream_to_planes(
+        ct[b * units * 64:(b + 1) * units * 64], qt[b], geometry, dpm,
+        dt[b * units:(b + 1) * units]) for b in range(B)]
+    err_single = max(max_abs_err(p[b], s[k]) for b, s in enumerate(singles)
+                     for k, p in enumerate(planes))
+    log(f"K3 at B={B}: {launches['idct_stream_to_planes']} launch(es) for "
+        f"{images} images; max_abs_err {err_single} against {B} one-image "
+        f"launches")
+    if launches["idct_stream_to_planes"] != 1 or err_single:
+        raise AssertionError("K3's batched launch must be one launch equal "
+                             "to the one-image launches")
+    _, timing = measure(
+        dev, card, f"K3 idct_stream_to_planes at B={B}, {mcus_x}x{mcus_y} "
+        f"MCUs 4:2:0 per image",
+        lambda: I.idct_stream_to_planes(*args),
+        lambda: I.idct_stream_to_planes_plain(*args),
+        lambda got, ref: max(max_abs_err(a, b) for a, b in zip(got, ref)))
+    _, timing1 = measure(
+        dev, card, f"K3 idct_stream_to_planes at B=1 on image 0 of the same "
+        f"streams", lambda: I.idct_stream_to_planes(*one),
+        lambda: I.idct_stream_to_planes_plain(*one),
+        lambda got, ref: max(max_abs_err(a, b) for a, b in zip(got, ref)))
+    pixels = sum(p.numel() for p in planes)
+    b_ms, b_by = bound(pixels * 2 + pixels // 64 * 2
+                       + B * 64 * 4 * len(comps) + pixels,
+                       pixels * K3_OPS_PER_PIXEL)
+    per_image = {k: timing[k] / B for k in ("ms_warm_l2", "ms_cold_l2")}
+    log(f"  K3 at B={B}: {pixels * 2 / 1e6:.2f} MB in, {pixels / 1e6:.2f} MB "
+        f"out, bound {b_ms:.4f} ms by {b_by} ({b_ms / B:.5f} per image); "
+        f"per image warm {per_image['ms_warm_l2']:.5f} ms, cold "
+        f"{per_image['ms_cold_l2']:.5f} ms; B=1 warm "
+        f"{timing1['ms_warm_l2']:.5f} ms, cold {timing1['ms_cold_l2']:.5f} "
+        f"ms  [{card}]")
+    return dict(batch16_ms_warm_l2=timing["ms_warm_l2"],
+                batch16_ms_cold_l2=timing["ms_cold_l2"],
+                batch16_call_ms=timing["call_ms"],
+                batch16_plain_ms=timing["plain_ms"],
+                batch16_bound_ms=b_ms, batch16_bound_by=b_by,
+                batch16_one_image_ms_warm_l2=timing1["ms_warm_l2"],
+                batch16_one_image_ms_cold_l2=timing1["ms_cold_l2"])
 
 
 def phase_sharded_small_streams(dev: torch.device, seed: int) -> None:
@@ -2413,7 +2495,25 @@ def phase_batch_kernels(dev: torch.device, card: str, datas):
     if err or offset != 2 * b * Tpos:
         raise AssertionError("K3 on a slice differs from its plain version, "
                              "or the slice is not a view at its offset")
-    errs["idct_stream_to_planes"] = err
+    # the group's tail: one DC un-delta and one K3 launch over the whole
+    # merged stream, each image with its own tables
+    group_dcv = DC.undelta_dc_values(sp.cfg, comp_slots, coeffs, batch=B)
+    own_dcv = torch.cat([DC.undelta_dc_values(
+        sp.cfg, comp_slots, coeffs[k * Tpos:(k + 1) * Tpos])
+        for k in range(B)])
+    group_args = (coeffs, qtables, sp.idct_geometry, sp.cfg.du_per_mcu,
+                  group_dcv)
+    group_err = max([max_abs_err(group_dcv, own_dcv)] + [
+        max_abs_err(x, y) for x, y in zip(
+            I.idct_stream_to_planes(*group_args),
+            I.idct_stream_to_planes_plain(*group_args))])
+    log(f"the group's tail on the merged stream ({B} images): the DC "
+        f"un-delta against each image's own, K3 in one launch against its "
+        f"plain version: max_abs_err {group_err}")
+    if group_err:
+        raise AssertionError("the group's tail differs from the images' own "
+                             "or from K3's plain version")
+    errs["idct_stream_to_planes"] = max(err, group_err)
 
     s_cap = H._emit_cap(sp.cfg.tuning.write_chunk)
     for what, value in (
@@ -2513,16 +2613,17 @@ def phase_batch_path(dev: torch.device, card: str, datas, merged_state):
     if not (dec.routes == [("merged", tuple(range(B)))]
             and launches["subseq_pass"] == rounds
             and launches["decode_write"] == 1
-            and launches["idct_stream_to_planes"] == B
+            and launches["idct_stream_to_planes"] == 1
+            and I.idct_stream_to_planes.images == B
             and len(by_slot) == len(sp.comps)
-            and all(v == B for v in by_slot.values())
+            and all(v == 1 for v in by_slot.values())
             and not any(launches[k] for k in ("decode_write_emit",)
                         + SUPER_KERNELS + LANE_KERNELS + SHARDED_KERNELS
                         + TIER_KERNELS)):
         raise AssertionError(f"the batch must be one merged group launching "
                              f"K1 once per merged round ({rounds}), K2 once "
-                             f"and K3 once per image, and no other kernel: "
-                             f"{dec.routes} {launches} {by_slot}")
+                             f"and K3 once for its {B} images, and no other "
+                             f"kernel: {dec.routes} {launches} {by_slot}")
     stream = T.parse(datas[0])
     mp = stream.size_x * stream.size_y / 1e6
     for i, (got, expect) in enumerate(zip(out, singles)):
@@ -2644,12 +2745,11 @@ def phase_batch_routes(dev: torch.device, card: str, datas, sparse,
                 and tl["subseq_pass"] >= 2 and tl["decode_write"] == 0
                 and all(tl[k] == 1 for k in ("decode_write_emit",)
                         + SUPER_KERNELS)
-                and tl["idct_stream_to_planes"] == B
+                and tl["idct_stream_to_planes"] == 1
                 and not any(tl[k] for k in LANE_KERNELS + SHARDED_KERNELS
                         + TIER_KERNELS)):
             raise AssertionError(f"the dense batch's records path must "
-                                 f"launch K4, K5 and K6 once and K3 per "
-                                 f"image: {tl}")
+                                 f"launch K4, K5, K6 and K3 once: {tl}")
         for i, (got, expect) in enumerate(zip(out, singles)):
             check_equal_numpy(f"records batch image {i}", got, expect)
         sig, inputs = batch_group(datas, dev)
@@ -2679,11 +2779,11 @@ def phase_batch_routes(dev: torch.device, card: str, datas, sparse,
         if not (dec.routes == [("merged", tuple(range(len(sparse))))]
                 and all(ll[k] == 1 for k in ("decode_write_emit",)
                         + LANE_KERNELS)
-                and ll["idct_stream_to_planes"] == len(sparse)
+                and ll["idct_stream_to_planes"] == 1
                 and not any(ll[k] for k in ("decode_write",) + SUPER_KERNELS
                             + SHARDED_KERNELS + TIER_KERNELS)):
-            raise AssertionError(f"the sparse batch must launch K4, K7 and "
-                                 f"K8 once and K3 per image: {ll}")
+            raise AssertionError(f"the sparse batch must launch K4, K7, K8 "
+                                 f"and K3 once: {ll}")
         for i, (got, expect) in enumerate(zip(out, sparse_singles)):
             check_equal_numpy(f"sparse batch image {i}", got, expect)
         sparse_errs = merged_records_held(
@@ -2699,7 +2799,7 @@ def phase_batch_routes(dev: torch.device, card: str, datas, sparse,
         f"launches {ml}")
     if not (dec.routes == [("mesh_merged", (0, 1)), ("mesh_merged", (2, 2))]
             and ml["decode_write"] == 2
-            and ml["idct_stream_to_planes"] == 4):
+            and ml["idct_stream_to_planes"] == 2):
         raise AssertionError(f"the mesh route must pad 3 images to 4 and "
                              f"decode 2 per entry: {dec.routes} {ml}")
     for i, (got, expect) in enumerate(zip(out, singles)):
@@ -2979,7 +3079,7 @@ def phase_multihost(dev: torch.device, card: str, images):
                 f"process; process 0's launches {lc}; {wall:.1f} s with "
                 f"start-up  [{card}]")
             if not (lc["subseq_pass"] >= 2 and lc["decode_write"] == 1
-                    and lc["idct_stream_to_planes"] == 2
+                    and lc["idct_stream_to_planes"] == 1
                     and not lc["subseq_pass_at"]):
                 raise AssertionError(f"a process of the multi-process batch "
                                      f"must decode its 2 images as one merged "
@@ -3096,6 +3196,7 @@ def main() -> int:
     timed(phase_lane_kernels_any_input, dev, args.seed)
     timed(phase_entropy_kernels_any_input, dev, args.seed)
     timed(phase_k3_any_input, dev, args.seed)
+    k3_batch = timed(phase_k3_batch, dev, card, args.seed)
     timed(phase_k9_any_input, dev, args.seed)
     timed(phase_sharded_small_streams, dev, args.seed)
     timed(phase_batch_small_streams, dev, args.seed)
@@ -3120,6 +3221,7 @@ def main() -> int:
         phase_where_time_goes, dev, data, card, decode_ms, tiles_decode_ms)
     k3, = (e for e in entries if e["name"] == "idct_stream_to_planes")
     k3["ms_in_decode"] = k3_times
+    k3.update(k3_batch)
     k3["ms_in_decode_records_path"] = records_times.get(
         "::idct_stream_to_planes_kernel", [])
     for e in entries:

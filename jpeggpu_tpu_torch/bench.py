@@ -666,7 +666,11 @@ def bench_batch(images: Sequence[BenchImage], dev: torch.device,
         sync(dev)
         return out
 
-    st = _time_loop(staged, iters, check=check)
+    def check_staged(comps):
+        # per component [B, h, w]: image b's planes are index b
+        check([[p[b] for p in comps] for b in range(B)])
+
+    st = _time_loop(staged, iters, check=check_staged)
     busy = (sum(t for _, t in device_work(dev, staged))
             if dev.type == "cuda" else None)
     result = dict(batch=B, mp=mp, ms=s["med_ms"], max_ms=s["max_ms"],

@@ -45,14 +45,15 @@ names and what each covers:
 - ``jpeggpu.sync.read``: one host read of a round's flag or count in
   ``sync_states``, that is the round's wait for the device;
 - ``jpeggpu.write.<mode>``: the write stage (K2, or K4-K8 under "tiles");
-- ``jpeggpu.tail``: the tail of one scan of one image (``scan_planes``,
-  in ``decode_merged`` and ``decode_pipeline``);
+- ``jpeggpu.tail``: the tail of one scan (``scan_planes``): of a whole
+  merged group in ``decode_merged``, of one image in ``decode_pipeline``;
 - inside it ``jpeggpu.dc``, the DC un-delta, and ``jpeggpu.idct_fused``
   (K3), or with ``with_idct=False`` ``jpeggpu.deinterleave``; the sharded
   tail (``parallel/segments.py``) has ``jpeggpu.dc``,
   ``jpeggpu.deinterleave`` and ``jpeggpu.idct`` (K9) of its own;
-- ``jpeggpu.to_host``: planes copied to numpy (``BatchDecoder``,
-  ``Decoder.decode``), the wait for the device included.
+- ``jpeggpu.to_host``: planes copied to numpy, the wait for the device
+  included: a merged group's, one copy per component for all its images,
+  or one image's (``BatchDecoder``, ``Decoder.decode``).
 
 No range waits for the device but ``jpeggpu.sync.read`` and
 ``jpeggpu.to_host``, which wrap waits the decode has anyway.

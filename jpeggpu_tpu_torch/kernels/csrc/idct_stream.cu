@@ -1,5 +1,6 @@
 // K3: stream-order coefficients of a scan -> the uint8 pixel planes of its
-// components, all of them in one launch.
+// components, all of them in one launch, for one image or for B images of
+// one geometry (a merged group), each with its own quantisation tables.
 //
 // Replaces the Pallas kernel `_stream_idct_kernel` behind
 // `jpeggpu_tpu/ops/idct_pallas.py: idct_stream_to_plane`, which the
@@ -23,6 +24,12 @@
 //   two with R * du_per_mcu <= 128, chosen by the host; the last run of a
 //   row takes the rest), across all listed components. Its coefficients
 //   are one contiguous range of the stream, R * du_per_mcu * 128 bytes.
+// - Batch: the grid's second dimension is the image. B images one after
+//   another in the stream, the DC vector and each component's [B, H, W]
+//   plane are one image B times as tall, so image b's MCU row y is row
+//   b * mcus_y + y of that stacked image; only the tables are the image's
+//   own, staged once per block. Each image's bytes in and out, and so the
+//   bound per image, are those of one image alone.
 // - Staging: persistent blocks (as many as fit on the card) walk the runs;
 //   each stages a run in shared memory with one 1-D bulk copy
 //   (bulk_copy.cuh) issued by one thread and completed on an mbarrier, in a
@@ -72,17 +79,22 @@ struct StreamRuns {
   StreamComp comp[kMaxComps];
   int n_comps;
   int units;  // data units per MCU over the listed components
-  int mcus_x, du_per_mcu, run_mcus, runs_per_row, n_runs;
+  int mcus_x, du_per_mcu, run_mcus, runs_per_row, n_runs;  // per image
+  int mcus_y;  // MCU rows per image
+  int q_stride;  // table values per image: n tables x 64
 };
 
 struct Run {
-  int my, mx0, n;  // MCU row, first MCU column, MCUs
+  int my, mx0, n;  // MCU row of the stacked images, first MCU column, MCUs
 };
 
-__device__ __forceinline__ Run run_at(const StreamRuns& a, int run) {
+// run `run` of image `img`
+__device__ __forceinline__ Run run_at(const StreamRuns& a, int img,
+                                      int run) {
   Run r;
-  r.my = run / a.runs_per_row;
-  r.mx0 = (run - r.my * a.runs_per_row) * a.run_mcus;
+  const int row = run / a.runs_per_row;
+  r.my = img * a.mcus_y + row;
+  r.mx0 = (run - row * a.runs_per_row) * a.run_mcus;
   r.n = min(a.run_mcus, a.mcus_x - r.mx0);
   return r;
 }
@@ -116,9 +128,10 @@ __device__ __forceinline__ Unit unit_of(const StreamRuns& a, int n, int tid) {
   return u;
 }
 
-__device__ __forceinline__ void load_run(const StreamRuns& a, int run,
-                                         uint8_t* dst, uint64_t* bar) {
-  const Run r = run_at(a, run);
+__device__ __forceinline__ void load_run(const StreamRuns& a, int img,
+                                         int run, uint8_t* dst,
+                                         uint64_t* bar) {
+  const Run r = run_at(a, img, run);
   const uint32_t bytes = static_cast<uint32_t>(r.n * a.du_per_mcu) * 128u;
   mbar_expect_tx(bar, bytes);
   bulk_load(dst,
@@ -157,9 +170,10 @@ __device__ __forceinline__ void unit_pixels(const StreamRuns& a, const Run& r,
       (static_cast<int64_t>(r.my) * a.mcus_x + r.mx0) * a.du_per_mcu + u.du;
   v[0] = static_cast<uint32_t>(static_cast<int32_t>(a.dc[gdu]));
   const int64_t pitch = static_cast<int64_t>(a.mcus_x) * cc.ssx * 8;
-  uint8_t* dst = cc.plane +
-                 static_cast<int64_t>((r.my * cc.ssy + u.sy) * 8) * pitch +
-                 static_cast<int64_t>(r.mx0 * cc.ssx + u.bx) * 8;
+  uint8_t* dst =
+      cc.plane +
+      (static_cast<int64_t>(r.my) * cc.ssy + u.sy) * 8 * pitch +
+      static_cast<int64_t>(r.mx0 * cc.ssx + u.bx) * 8;
   dequant_idct_store(v, q, dst, pitch);
 }
 
@@ -169,11 +183,13 @@ idct_stream_to_planes_kernel(const StreamRuns a) {
   __shared__ uint64_t full[kRunStages];
   __shared__ __align__(16) uint32_t q[kMaxComps][64];
   const int tid = threadIdx.x;
+  const int img = blockIdx.y;
+  const int32_t* qt = a.qtables + static_cast<int64_t>(img) * a.q_stride;
 #pragma unroll
   for (int c = 0; c < kMaxComps; ++c) {
     if (c >= a.n_comps) break;
     for (int i = tid; i < 64; i += blockDim.x) {
-      q[c][i] = qvalue(a.qtables[a.comp[c].qidx * 64 + i]);
+      q[c][i] = qvalue(qt[a.comp[c].qidx * 64 + i]);
     }
   }
   const int stage_bytes = a.run_mcus * a.du_per_mcu * 128;
@@ -185,7 +201,9 @@ idct_stream_to_planes_kernel(const StreamRuns a) {
   if (tid == 0) {
     for (int s = 0; s < kRunStages; ++s) {
       const int run = blockIdx.x + s * gridDim.x;
-      if (run < a.n_runs) load_run(a, run, stage + s * stage_bytes, &full[s]);
+      if (run < a.n_runs) {
+        load_run(a, img, run, stage + s * stage_bytes, &full[s]);
+      }
     }
   }
   // a whole run's units are the same for every run: worked out once
@@ -194,7 +212,7 @@ idct_stream_to_planes_kernel(const StreamRuns a) {
   int i = 0;
   for (int run = blockIdx.x; run < a.n_runs; run += gridDim.x, ++i) {
     const int slot = i % kRunStages;
-    const Run r = run_at(a, run);
+    const Run r = run_at(a, img, run);
     mbar_wait(&full[slot], (i / kRunStages) & 1);
     if (tid < r.n * a.units) {
       const Unit u = r.n == a.run_mcus ? whole : unit_of(a, r.n, tid);
@@ -212,7 +230,7 @@ idct_stream_to_planes_kernel(const StreamRuns a) {
       const int next = run + kRunStages * gridDim.x;
       if (next < a.n_runs) {
         fence_proxy_async();
-        load_run(a, next, stage + slot * stage_bytes, &full[slot]);
+        load_run(a, img, next, stage + slot * stage_bytes, &full[slot]);
       }
     }
   }
@@ -221,10 +239,11 @@ idct_stream_to_planes_kernel(const StreamRuns a) {
 }  // namespace jpeggpu
 
 // desc (host memory, int64): mcus_x, du_per_mcu, units, run_mcus,
-// runs_per_row, n_runs, threads; then per component: plane pointer, off,
-// ssx, ssy, table index, first. The division into runs is the host's
-// (ops/idct.py: stream_runs); the grid is as many blocks as fit on the
-// card at once, at most one per run.
+// runs_per_row, n_runs, threads, batch, mcus_y, q_stride; then per
+// component: plane pointer, off, ssx, ssy, table index, first. The division
+// of an image into runs is the host's (ops/idct.py: stream_runs); the grid
+// is batch images high and, across them, as many blocks as fit on the card
+// at once, at most one per run of an image.
 extern "C" int jpeggpu_idct_stream_to_planes(const void* coeffs,
                                              const void* dc,
                                              const void* qtables,
@@ -246,8 +265,11 @@ extern "C" int jpeggpu_idct_stream_to_planes(const void* coeffs,
   a.runs_per_row = static_cast<int>(desc[4]);
   a.n_runs = static_cast<int>(desc[5]);
   const int threads = static_cast<int>(desc[6]);
+  const int batch = static_cast<int>(desc[7]);
+  a.mcus_y = static_cast<int>(desc[8]);
+  a.q_stride = static_cast<int>(desc[9]);
   for (int c = 0; c < n_comps; ++c) {
-    const int64_t* d = desc + 7 + 6 * c;
+    const int64_t* d = desc + 10 + 6 * c;
     a.comp[c].plane = reinterpret_cast<uint8_t*>(d[0]);
     a.comp[c].off = static_cast<int>(d[1]);
     a.comp[c].ssx = static_cast<int>(d[2]);
@@ -255,7 +277,11 @@ extern "C" int jpeggpu_idct_stream_to_planes(const void* coeffs,
     a.comp[c].qidx = static_cast<int>(d[4]);
     a.comp[c].first = static_cast<int>(d[5]);
   }
-  if (a.n_runs == 0) return 0;
+  if (a.n_runs == 0 || batch == 0) return 0;
+  if (batch < 0 || batch > 65535 ||
+      static_cast<int64_t>(a.runs_per_row) * a.mcus_y != a.n_runs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (threads < 32 || threads > kMaxRunUnits || threads % 32 ||
       a.run_mcus * a.units > threads) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -273,7 +299,8 @@ extern "C" int jpeggpu_idct_stream_to_planes(const void* coeffs,
         &per_sm, idct_stream_to_planes_kernel, threads, smem);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = min(a.n_runs, max(1, per_sm) * sms);
+  const int resident = max(1, per_sm) * sms;
+  const dim3 grid(min(a.n_runs, (resident + batch - 1) / batch), batch);
   idct_stream_to_planes_kernel<<<grid, threads, smem,
                                  static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

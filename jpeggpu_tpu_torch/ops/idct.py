@@ -27,6 +27,8 @@ from .transpose import deinterleave
 MAX_PLANES = 4
 # data units of one K3 run at most: the threads of one of its blocks
 RUN_UNITS = 128
+# images of one K3 launch at most: its grid's second dimension
+MAX_BATCH = 65535
 
 # (num_mcus_x, num_mcus_y, per component (off, ssx, ssy, qtable index))
 StreamGeometry = Tuple[int, int, Sequence[Tuple[int, int, int, int]]]
@@ -167,8 +169,15 @@ def idct_stream_to_planes_plain(coeffs: torch.Tensor, qtables: torch.Tensor,
                                 geometry: StreamGeometry, du_per_mcu: int,
                                 dcv: torch.Tensor) -> List[torch.Tensor]:
     """Plain version of :func:`idct_stream_to_planes`: DC splice,
-    ``deinterleave`` and the plain plane IDCT per component, on whatever
-    device holds the tensors."""
+    ``deinterleave`` and the plain plane IDCT per component (image by image
+    for a batch), on whatever device holds the tensors."""
+    if qtables.dim() == 3:
+        batch = qtables.shape[0]
+        n, m = coeffs.numel() // batch, dcv.numel() // batch
+        images = [idct_stream_to_planes_plain(
+            coeffs[b * n:(b + 1) * n], qtables[b], geometry, du_per_mcu,
+            dcv[b * m:(b + 1) * m]) for b in range(batch)]
+        return [torch.stack(planes) for planes in zip(*images)]
     num_mcus_x, num_mcus_y, comps = geometry
     spliced = coeffs.clone().view(-1, C.DATA_UNIT_SIZE)
     spliced[:, 0] = dcv
@@ -182,34 +191,40 @@ def idct_stream_to_planes(coeffs: torch.Tensor, qtables: torch.Tensor,
                           geometry: StreamGeometry, du_per_mcu: int,
                           dcv: torch.Tensor) -> List[torch.Tensor]:
     """Fused de-interleave + DC splice + dequant + IDCT: stream-order
-    coefficients of one scan straight to its components' uint8 planes.
+    coefficients of one scan straight to its components' uint8 planes, for
+    one image or for B images of one geometry (a merged group), each with
+    its own quantisation tables.
 
     CUDA tensors: one launch of kernel K3 (``kernels/csrc/idct_stream.cu``;
     replaces the Pallas kernel behind ``jpeggpu_tpu/ops/idct_pallas.py:
     idct_stream_to_plane``, which the reference launches per component)
-    for all the listed components. Bound by bytes: every coefficient is
-    read once and every pixel written once; see the note in the source.
-    CPU tensors: the plain version.
+    for all the listed components of all the images. Bound by bytes: every
+    coefficient is read once and every pixel written once; see the note in
+    the source. CPU tensors: the plain version.
 
     Args:
-      coeffs: int16[num_mcus * du_per_mcu * 64] natural-order stream, DC
-        still difference-coded (slot 0 is not read).
-      qtables: int32[(n, 64)], raw DQT bytes in natural order.
+      coeffs: int16[B * num_mcus * du_per_mcu * 64] natural-order streams,
+        image after image, DC still difference-coded (slot 0 is not read).
+      qtables: int32[(n, 64)] for one image, int32[(B, n, 64)] for B
+        images: raw DQT bytes in natural order.
       geometry: ``(num_mcus_x, num_mcus_y, comps)``, per component (1 to
         4) its first data-unit slot in the MCU, its sampling factors in
         this scan and its row of ``qtables``: ``(off, ssx, ssy, qidx)``.
-      dcv: int16[num_mcus * du_per_mcu] un-deltaed DC values
+      dcv: int16[B * num_mcus * du_per_mcu] un-deltaed DC values
         (``ops.dc.undelta_dc_values``), spliced into slot 0.
-    Returns per component uint8[(num_mcus_y*ssy*8, num_mcus_x*ssx*8)].
+    Returns per component uint8[(num_mcus_y*ssy*8, num_mcus_x*ssx*8)], or
+    for B images uint8[(B, num_mcus_y*ssy*8, num_mcus_x*ssx*8)].
     """
     num_mcus_x, num_mcus_y, comps = geometry
+    batch = qtables.shape[0] if qtables.dim() == 3 else 1
     dev = coeffs.device
     if dev.type == "cpu":
+        idct_stream_to_planes.images += batch
         return idct_stream_to_planes_plain(coeffs, qtables, geometry,
                                            du_per_mcu, dcv)
     if dev.type != "cuda":
         raise ValueError(f"idct_stream_to_planes: unsupported device {dev}")
-    total_du = num_mcus_x * num_mcus_y * du_per_mcu
+    total_du = batch * num_mcus_x * num_mcus_y * du_per_mcu
     for name, t, dtype, numel in (
             ("coeffs", coeffs, torch.int16, total_du * C.DATA_UNIT_SIZE),
             ("dcv", dcv, torch.int16, total_du),
@@ -223,9 +238,12 @@ def idct_stream_to_planes(coeffs: torch.Tensor, qtables: torch.Tensor,
     if coeffs.data_ptr() % 16:
         raise ValueError("idct_stream_to_planes: coeffs must be 16-byte "
                          "aligned (the bulk copy moves 16 bytes at a time)")
-    if qtables.dim() != 2 or qtables.shape[1] != 64:
-        raise ValueError(f"idct_stream_to_planes: qtables must be (n, 64), "
-                         f"got {tuple(qtables.shape)}")
+    if qtables.dim() not in (2, 3) or qtables.shape[-1] != 64:
+        raise ValueError(f"idct_stream_to_planes: qtables must be (n, 64) "
+                         f"or (B, n, 64), got {tuple(qtables.shape)}")
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"idct_stream_to_planes: 1 to {MAX_BATCH} images, "
+                         f"got {batch}")
     if not 1 <= len(comps) <= MAX_PLANES:
         raise ValueError(f"idct_stream_to_planes: 1 to {MAX_PLANES} "
                          f"components, got {len(comps)}")
@@ -233,12 +251,12 @@ def idct_stream_to_planes(coeffs: torch.Tensor, qtables: torch.Tensor,
         if not 0 <= off <= off + ssx * ssy <= du_per_mcu or ssx < 1 or ssy < 1:
             raise ValueError("idct_stream_to_planes: component slots outside "
                              "the MCU")
-        if not 0 <= qidx < qtables.shape[0]:
+        if not 0 <= qidx < qtables.shape[-2]:
             raise ValueError(f"idct_stream_to_planes: no table {qidx}")
     if du_per_mcu > RUN_UNITS:
         raise ValueError(f"idct_stream_to_planes: {du_per_mcu} data units "
                          f"per MCU, at most {RUN_UNITS}")
-    planes = [torch.empty((num_mcus_y * ssy * 8, num_mcus_x * ssx * 8),
+    planes = [torch.empty((batch, num_mcus_y * ssy * 8, num_mcus_x * ssx * 8),
                           dtype=torch.uint8, device=dev)
               for _, ssx, ssy, _ in comps]
     run_mcus, per_row, n_runs = stream_runs(num_mcus_x, num_mcus_y,
@@ -246,7 +264,7 @@ def idct_stream_to_planes(coeffs: torch.Tensor, qtables: torch.Tensor,
     first, units = comp_firsts(comps)
     threads = -(-run_mcus * units // 32) * 32
     values = [num_mcus_x, du_per_mcu, units, run_mcus, per_row, n_runs,
-              threads]
+              threads, batch, num_mcus_y, qtables.shape[-2] * 64]
     for plane, (off, ssx, ssy, qidx), f in zip(planes, comps, first):
         values += [plane.data_ptr(), off, ssx, ssy, qidx, f]
     desc = kernels.host_int64(values)
@@ -256,12 +274,16 @@ def idct_stream_to_planes(coeffs: torch.Tensor, qtables: torch.Tensor,
              torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "idct_stream_to_planes")
     idct_stream_to_planes.launches += 1
+    idct_stream_to_planes.images += batch
     for off, *_ in comps:
         idct_stream_to_planes.launches_by_slot[off] += 1
-    return planes
+    return planes if qtables.dim() == 3 else [p[0] for p in planes]
 
 
 idct_stream_to_planes.launches = 0
+# the images the calls covered, the plain version's (CPU tensors) too: on
+# the card, over `launches`, the images per launch
+idct_stream_to_planes.images = 0
 # the components the launches covered, by `off` (a component's first slot)
 idct_stream_to_planes.launches_by_slot = collections.Counter()
 

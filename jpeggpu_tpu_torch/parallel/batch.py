@@ -7,9 +7,12 @@ lane axis (each image's restart segments become more independent segments,
 :func:`merge_scan_inputs`), the entropy decode runs once at B x lanes width
 (K1 once per sync round, then K2, or K4-K8 under a records plan, as
 ``ops.huffman.decode_scan`` dispatches on the plan's ``write_mode``), and
-the merged coefficient stream is cut per image for the tail: K3 once per
-image and scan, or with ``with_idct=False`` the non-fused tail
-(``pipeline.scan_planes``).
+the tail runs once per scan over the whole merged stream
+(``pipeline.scan_planes``): one DC un-delta whose sums restart at every
+segment of every image, then K3 once for all the images, or with
+``with_idct=False`` the non-fused tail. Each component comes back to the
+host in one copy for the group, ``[B, size_y, size_x]``, and each image's
+plane is its slice.
 
 Images are grouped by pixel geometry (:func:`_geometry_key`); within a
 group the content-dependent shape buckets (lanes, tile geometry) are raised
@@ -160,27 +163,23 @@ def _merged_scan_coeffs(sp: ScanPlanStatic, ms: MergedScan, batch: int):
 
 def decode_merged(sig: PlanSignature, scans: List[MergedScan],
                   qtables: torch.Tensor,
-                  with_idct: bool = True) -> List[Tuple[torch.Tensor, ...]]:
-    """A merged group, staged by :func:`stage_merged`: per image its
-    cropped planes, on the device of the staged inputs."""
+                  with_idct: bool = True) -> Tuple[torch.Tensor, ...]:
+    """A merged group of B images, staged by :func:`stage_merged`: per
+    component its cropped planes, ``[B, size_y, size_x]`` (image b's is
+    index b), on the device of the staged inputs."""
     batch = qtables.shape[0]
-    pix: List[Dict[int, torch.Tensor]] = [{} for _ in range(batch)]
+    pix: Dict[int, torch.Tensor] = {}
     for sp, ms in zip(sig.scans, scans):
         coeffs, dcd = _merged_scan_coeffs(sp, ms, batch)
-        T = sp.cfg.total_positions
-        tdu = T // C.DATA_UNIT_SIZE
-        for b in range(batch):
-            # image b's stream and DC are views at its offset
-            dcb = None if dcd is None else dcd[b * tdu:(b + 1) * tdu]
-            with scope("jpeggpu.tail", coeffs.device):
-                planes = scan_planes(sp, coeffs[b * T:(b + 1) * T], dcb,
-                                     qtables[b], with_idct)
-            for c, plane in zip(sp.comps, planes):
-                pix[b][c[0]] = plane
-    return [crop(sig, p) for p in pix]
+        with scope("jpeggpu.tail", coeffs.device):
+            planes = scan_planes(sp, coeffs, dcd, qtables, with_idct)
+        for c, plane in zip(sp.comps, planes):
+            pix[c[0]] = plane
+    return crop(sig, pix)
 
 
 def _to_numpy(planes) -> List[np.ndarray]:
+    """Planes on the device -> numpy, one copy each."""
     with scope("jpeggpu.to_host", planes[0].device):
         return [p.contiguous().cpu().numpy() for p in planes]
 
@@ -268,7 +267,10 @@ class BatchDecoder:
                 scans, qtables = stage_merged(sig, inputs[lo:lo + limit],
                                               device)
                 planes = decode_merged(sig, scans, qtables, self.with_idct)
-            out += [_to_numpy(p) for p in planes]
+            # one copy per component for the group; image b's planes are
+            # index b of each (C-contiguous)
+            group = _to_numpy(planes)
+            out += [[a[b] for a in group] for b in range(len(group[0]))]
             self.routes.append((route, tuple(indices[lo:lo + limit])))
         return out
 

@@ -8,6 +8,9 @@ validity is data-driven, see ``ops.huffman.make_ctx``). The device chain is
   -> undelta_dc_values -> idct_stream_to_planes (K3, once per scan for all
   its components) -> crop
 
+(``scan_planes``, the tail, also takes the stream of a merged group of B
+images whole: ``parallel/batch.py``)
+
 and runs eagerly on the device that holds the staged inputs. Under a plan
 built with ``Tuning(write_mode="tiles")`` the write stage is the records
 path instead (``ops/write.py``): decode_write_emit (K4), then, per scan, one
@@ -416,26 +419,36 @@ def plan_buffer_size(plan: DecodePlan) -> int:
 def scan_planes(sp: ScanPlanStatic, coeffs: torch.Tensor,
                 dcd: Optional[torch.Tensor], qtables: torch.Tensor,
                 with_idct: bool = True) -> List[torch.Tensor]:
-    """The tail of one scan of one image: its stream-order coefficients
-    (``coeffs``, DC still difference-coded; ``dcd`` the records path's DC
-    side vector or None) -> per scan component its uncropped plane.
+    """The tail of one scan of one image, or of B images of one plan whose
+    streams follow one another (a merged group): the stream-order
+    coefficients (``coeffs``, DC still difference-coded; ``dcd`` the
+    records path's DC side vector or None) -> per scan component its
+    uncropped plane. ``qtables`` is int32[(4, 64)] for one image and
+    int32[(B, 4, 64)] for B, whose planes are then [(B, H, W)]. The
+    tensor ops and launches do not depend on B.
 
     ``with_idct``: the DC un-delta as a side vector, then K3 (uint8
     pixels). Else the reference's non-fused tail: the DC un-delta rewrites
     the stream, which is de-interleaved into int16 coefficient planes."""
     cfg = sp.cfg
     dev = coeffs.device
+    batch = qtables.shape[0] if qtables.dim() == 3 else 1
     comp_slots = tuple((c[1], c[2] * c[3]) for c in sp.comps)
     if not with_idct:
         with scope("jpeggpu.dc", dev):
-            coeffs = undelta_dc(cfg, comp_slots, coeffs)
+            coeffs = undelta_dc(cfg, comp_slots, coeffs, batch)
         with scope("jpeggpu.deinterleave", dev):
-            return deinterleave(coeffs, cfg.du_per_mcu, sp.num_mcus_x,
-                                sp.num_mcus_y, [c[1:4] for c in sp.comps])
+            # B streams one after another are one image B times as tall
+            planes = deinterleave(coeffs, cfg.du_per_mcu, sp.num_mcus_x,
+                                  batch * sp.num_mcus_y,
+                                  [c[1:4] for c in sp.comps])
+        if qtables.dim() == 3:
+            planes = [p.view(batch, -1, p.shape[1]) for p in planes]
+        return planes
     # DC un-delta as a side vector: the stream -> plane kernel takes slot
     # 0 from it, so the DC stage never rewrites the stream
     with scope("jpeggpu.dc", dev):
-        dcv = undelta_dc_values(cfg, comp_slots, coeffs, dc=dcd)
+        dcv = undelta_dc_values(cfg, comp_slots, coeffs, dc=dcd, batch=batch)
     with scope("jpeggpu.idct_fused", dev):
         return idct_stream_to_planes(coeffs, qtables, sp.idct_geometry,
                                      cfg.du_per_mcu, dcv)
@@ -443,9 +456,10 @@ def scan_planes(sp: ScanPlanStatic, coeffs: torch.Tensor,
 
 def crop(signature: PlanSignature,
          planes: Dict[int, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-    """Component index -> uncropped plane, to the planes in component
-    order, cropped to component size."""
-    return tuple(planes[ci][:size_y, :size_x]
+    """Component index -> uncropped plane ([H, W], or [B, H, W] for a
+    merged group), to the planes in component order, cropped to component
+    size."""
+    return tuple(planes[ci][..., :size_y, :size_x]
                  for ci, (size_x, size_y) in enumerate(signature.comp_sizes))
 
 

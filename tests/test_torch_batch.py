@@ -258,9 +258,84 @@ def test_merged_records_path_per_image(pair_batch, tile_mode):
         assert torch.equal(coeffs[b * T_:(b + 1) * T_], ref)
         if dc is not None:
             assert torch.equal(dc[b * tdu:(b + 1) * tdu], refdc[:tdu])
+    # per component [B, size_y, size_x]: image b's planes are index b
     out = B.decode_merged(sig, scans, qtables)
-    for planes, ref in zip(out, default_planes):
-        assert all(np.array_equal(a.numpy(), b) for a, b in zip(planes, ref))
+    for b, ref in enumerate(default_planes):
+        assert all(np.array_equal(a[b].numpy(), r) for a, r in zip(out, ref))
+
+
+def test_merged_group_differs_in_quality():
+    """Two images of one geometry at quality 50 and 90: the standard
+    Huffman tables are shared, so they merge, but each has its own
+    quantisation tables, which the group's one K3 call reads per image."""
+    datas = [encode(_small(seed), EncodeSpec(sampling=_S420, quality=q))
+             for seed, q in ((6, 50), (7, 90))]
+    q0, q1 = (T.parse(d).qtables for d in datas)
+    assert not np.array_equal(q0, q1)
+    dec = BatchDecoder(device="cpu")
+    out = dec.decode(datas)
+    assert dec.routes == [("merged", (0, 1))]
+    _assert_golden(datas, out)
+
+
+def test_merged_restarts_short_last_segment():
+    """Three distinct images whose last restart segment is short (3x2
+    MCUs, restart interval 4: segments of 4 and 2): the group's DC
+    un-delta restarts at every segment of every image."""
+    datas = [encode(_small(seed), EncodeSpec(sampling=_S420,
+                                             restart_interval=4))
+             for seed in (8, 9, 10)]
+    cfg = pipeline.build_plan(T.parse(datas[0])).signature.scans[0].cfg
+    assert cfg.total_mcus % cfg.mcus_per_seg
+    dec = BatchDecoder(device="cpu")
+    out = dec.decode(datas)
+    assert dec.routes == [("merged", (0, 1, 2))]
+    _assert_golden(datas, out)
+
+
+def test_batch_planes_c_contiguous():
+    """Every plane BatchDecoder.decode returns, on the merged route (a
+    slice of its group's copy) and the per-image one, is a C-contiguous
+    array of the component's cropped shape."""
+    datas = [encode(_small(seed, 44, 30), EncodeSpec(sampling=_S420))
+             for seed in (11, 12)]
+    datas.append(encode(_small(13, 44, 30)[..., 0]))
+    dec = BatchDecoder(device="cpu")
+    out = dec.decode(datas)
+    assert sorted(dec.routes) == [("merged", (0, 1)), ("per_image", (2,))]
+    for data, planes in zip(datas, out):
+        comps = T.parse(data).components
+        assert len(planes) == len(comps)
+        for plane, comp in zip(planes, comps):
+            assert plane.dtype == np.uint8
+            assert plane.shape == (comp.size_y, comp.size_x)
+            assert plane.flags["C_CONTIGUOUS"]
+    _assert_golden(datas, out)
+
+
+def test_k3_covers_the_group_in_one_call(monkeypatch):
+    """A merged group of three runs its tail in one K3 call per scan, and
+    ``idct_stream_to_planes.images`` counts the three images it covered
+    (on the CPU the call runs the plain version)."""
+    from jpeggpu_tpu_torch.ops import idct as tidct
+
+    calls = []
+    k3 = pipeline.idct_stream_to_planes
+
+    def counted(coeffs, qtables, *args):
+        calls.append(tuple(qtables.shape))
+        return k3(coeffs, qtables, *args)
+
+    monkeypatch.setattr(pipeline, "idct_stream_to_planes", counted)
+    monkeypatch.setattr(tidct.idct_stream_to_planes, "images", 0)
+    datas = _pair() + [encode(_small(5), EncodeSpec(sampling=_S420,
+                                                    restart_interval=2))]
+    dec = BatchDecoder(device="cpu")
+    out = dec.decode(datas)
+    assert dec.routes == [("merged", (0, 1, 2))]
+    assert calls == [(3, 4, 64)]
+    assert tidct.idct_stream_to_planes.images == 3
+    _assert_golden(datas, out)
 
 
 def test_merge_scan_inputs_refuses_int32_overflow():

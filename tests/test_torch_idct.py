@@ -108,6 +108,91 @@ def test_stream_to_planes_matches_golden(test_image, name):
                                   expect_planes[c[0]])
 
 
+def _scan_planes_of_group(test_image, batch, with_idct):
+    """``batch`` images of one geometry, each its own content and quality
+    (so its own quantisation tables), 4:2:0 with restart interval 7: at
+    67x45 that is 5x3 MCUs in segments of 7, 7 and 1, so each image's last
+    restart segment is short. Returns the scan's plan, per image golden's
+    raw stream, its tables and its golden planes (``with_idct``)."""
+    datas = [encode(np.roll(test_image, 9 * b, axis=1),
+                    EncodeSpec(quality=50 + 10 * b, **LAYOUTS["420_rst7"]))
+             for b in range(batch)]
+    plan, ((_, sp, _),) = _golden_scans(datas[0])
+    assert (sp.cfg.total_mcus, sp.cfg.mcus_per_seg) == (15, 7)
+    raws, qts, expect = [], [], []
+    for data in datas:
+        p, ((_, other, raw),) = _golden_scans(data)
+        assert other.idct_geometry == sp.idct_geometry
+        raws.append(torch.from_numpy(raw.copy()))
+        qts.append(torch.from_numpy(p.stream.qtables.astype(np.int32)))
+        expect.append(golden.decode(data, with_idct=with_idct))
+    return plan, sp, raws, qts, expect
+
+
+@pytest.mark.parametrize("with_idct", [True, False])
+@pytest.mark.parametrize("dc_from", ["stream", "side_vector"])
+@pytest.mark.parametrize("batch", [1, 2, 5])
+def test_group_tail_equals_per_image(test_image, batch, dc_from, with_idct):
+    """pipeline.scan_planes over B images' streams one after another (a
+    merged group's tail: one DC un-delta, then one K3 call or the
+    non-fused de-interleave) == scan_planes image by image, bit for bit,
+    and == golden's planes. Each image's last restart segment is short, so
+    the un-delta restarts at every image boundary; the DC comes from slot 0
+    of the stream or from a side vector as the records write path hands it
+    over (longer than the group's data units; under K3 the stream's slot 0
+    is zeroed, so that it cannot be read instead; the non-fused tail reads
+    the stream)."""
+    plan, sp, raws, qts, expect = _scan_planes_of_group(test_image, batch,
+                                                         with_idct)
+    tdu = sp.cfg.total_mcus * sp.cfg.du_per_mcu
+    if dc_from == "stream":
+        dcds = [None] * batch
+        group_dcd = None
+    else:
+        dcds = [r.view(-1, 64)[:, 0].clone() for r in raws]
+        group_dcd = torch.cat(dcds + [torch.full((5,), 999,
+                                                 dtype=torch.int16)])
+        if with_idct:
+            raws = [r.clone() for r in raws]
+            for r in raws:
+                r.view(-1, 64)[:, 0] = 0
+    group = pipeline.scan_planes(sp, torch.cat(raws), group_dcd,
+                                 torch.stack(qts), with_idct)
+    assert len(group) == len(sp.comps)
+    for b in range(batch):
+        own = pipeline.scan_planes(sp, raws[b], dcds[b], qts[b], with_idct)
+        for c, g, o in zip(sp.comps, group, own):
+            assert g.shape == (batch,) + tuple(o.shape) == (batch, c[5], c[4])
+            assert g.dtype == o.dtype
+            assert torch.equal(g[b], o)
+            # golden's coefficient planes are padded to whole MCUs
+            size_x, size_y = plan.signature.comp_sizes[c[0]]
+            assert np.array_equal(o[:size_y, :size_x].numpy(),
+                                  expect[b][c[0]][:size_y, :size_x])
+    assert group_dcd is None or tdu * batch < group_dcd.numel()
+
+
+@pytest.mark.parametrize("mcus_per_seg", [15, 7])
+def test_dc_undelta_ops_do_not_depend_on_batch(mcus_per_seg):
+    """The group's DC un-delta runs as many tensor ops for 5 images as for
+    one, with whole restart segments and with a short last one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jpeggpu_tpu_torch.ops.huffman import ScanConfig
+
+    cfg = ScanConfig(lanes=256, num_segments=-(-15 // mcus_per_seg),
+                     du_per_mcu=6, mcus_per_seg=mcus_per_seg, total_mcus=15,
+                     comp_groups=((4, 0, 1), (5, 2, 3), (6, 2, 3)))
+    counts = []
+    for batch in (1, 5):
+        coeffs = torch.zeros(batch * 15 * 6 * 64, dtype=torch.int16)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tdc.undelta_dc_values(cfg, ((0, 4), (4, 1), (5, 1)), coeffs,
+                                  batch=batch)
+        counts.append(sum(e.cpu_parent is None for e in prof.events()))
+    assert counts[0] == counts[1] <= 30
+
+
 # per layout: data units per MCU and (off, ssx, ssy, qidx) per component
 _RUN_GEOMETRIES = {
     "420": (6, ((0, 2, 2, 0), (4, 1, 1, 1), (5, 1, 1, 1))),
