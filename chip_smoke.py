@@ -160,6 +160,14 @@ line) on the first phase that fails; nothing is caught and carried past:
    (K2 launched, not K4), through the records path (`tile_mode="auto"`)
    and with the device destuff; its sync rounds, symbols per lane and K1 /
    K2 launches and ms beside the strip image's;
+6h. the host staging (`staging.py`): at 12 MP the pinned staging
+   region's device views torch.equal to one pageable copy per array, in
+   two copies; a transfer whose copy waits behind device work, then the
+   same decoder's next transfer, leaves the first image's staged inputs
+   as they were; two Decoders alternating over 50 images of three sizes,
+   each transfer before the other's decode, every plane == golden,
+   `staging.h2d_copies` two an image and `staging.host_allocs` none after
+   each decoder's first image;
 7. one JSON line listing the kernels, the card's name and power limit, and
    the result line.
 
@@ -554,7 +562,8 @@ def made_up_scan(dev: torch.device, seed: int, kind: str, shard: bool):
         seg_of_subseq=t(seg_of), seg_first_lane=t(seg_first),
         seg_num_subseq=t(seg_nsub), maxcode=t(maxcode), vsm=t(vsm),
         huffval=t(huffval),
-        symtab=convert.symbol_table(maxcode, vsm, huffval, fast).to(dev),
+        symtab=torch.tensor(convert.symbol_table(maxcode, vsm, huffval,
+                                                 fast), device=dev),
         lead_words=lead)
     ctx = H.make_ctx(cfg, arrs, num_subseq=n_sub if shard else None)
     return cfg, arrs, ctx
@@ -733,8 +742,9 @@ def phase_kernels(dev: torch.device, data: bytes, card: str):
     lanes = cfg.lanes
     scan, = plan.stream.scans
     buf = np.frombuffer(data, np.uint8)
-    if native.destuff_words(buf[scan.begin:scan.end], scan.segments[:, 0],
-                            scan.num_subsequences, lanes, scan.seg_raw) is None:
+    if not native.destuff_words(buf[scan.begin:scan.end], scan.segments[:, 0],
+                                scan.num_subsequences, scan.seg_raw,
+                                np.empty(lanes * 32, np.uint32)):
         raise AssertionError("the native destuffer refused the 12 MP stream")
     log(f"event pair around nothing, as the cold timing brackets a launch: "
         f"{time_cold_ms(lambda: None, dev):.4f} ms")
@@ -1806,6 +1816,132 @@ def phase_device_destuff_path(dev: torch.device, card: str, data: bytes,
     return launches, by_slot
 
 
+def pageable_inputs(inputs, plan, dev):
+    """The staged device inputs as one pageable copy per array: what the
+    staging region's views must equal (dtype, shape, contiguity, values)."""
+    def one(a):
+        a = np.ascontiguousarray(a)
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                else a).to(dev)
+
+    scans = []
+    for s, sp in zip(inputs["scans"], plan.signature.scans):
+        t = {name: one(a) for name, a in s.items()}
+        t["symtab"] = torch.tensor(convert.symbol_table(
+            s["maxcode"], s["vsm"], s["huffval"], sp.cfg.fast_tables),
+            device=dev)
+        scans.append(t)
+    return scans, one(inputs["qtables"])
+
+
+def same_tensor(name, got, want) -> None:
+    if (got.dtype != want.dtype or got.shape != want.shape
+            or not got.is_contiguous() or not torch.equal(got, want)):
+        raise AssertionError(f"staged {name}: {got.dtype} {tuple(got.shape)}"
+                             f" != {want.dtype} {tuple(want.shape)}, or "
+                             f"values differ")
+
+
+def staged_equal(label, staged, inputs, plan, dev) -> None:
+    """Each tensor of ``staged`` (``pipeline.stage_inputs``) torch.equal to
+    the pageable copy of the same host array."""
+    scans, qtables = pageable_inputs(inputs, plan, dev)
+    for si, (arrs, want) in enumerate(zip(staged["scans"], scans)):
+        for name, w in want.items():
+            same_tensor(f"{label} scan {si} {name}", getattr(arrs, name), w)
+    same_tensor(f"{label} qtables", staged["qtables"], qtables)
+
+
+def phase_staging(dev: torch.device, card: str, seed: int) -> None:
+    """The host staging (``jpeggpu_tpu_torch/staging.py``) on the card. At
+    12 MP: the pinned staging region's device views torch.equal to one
+    pageable copy per array, in two copies (one scan, the tables); a
+    transfer whose copy is held in the stream behind 50 ms of device work
+    and then a transfer of another image by the same decoder: the first
+    image's staged inputs still equal its own (the decoder waited for the
+    copy before writing over its buffer). Then two Decoders alternate over
+    50 images of three sizes (12 MP, 4032x1512, 4032x378, two contents),
+    each transfer issued before the other decoder's decode: every plane ==
+    golden, two copies an image, no staging buffer allocated after each
+    decoder's first image."""
+    from jpeggpu_tpu_torch import staging as ST
+
+    strips = [make_image(seed + k, QUALITY, width=FULL_W, height=FULL_H)[0]
+              for k in (0, 1)]
+    heights = (FULL_H, FULL_H // 2, FULL_H // 8)
+    images = [(repeat_strip(st, h), tiled_golden(st, h))
+              for h in heights for st in strips]
+    data = images[0][0]
+    plan = pipeline.build_plan(T.parse(data))
+    stg = ST.HostStaging(dev)
+    stg.begin()
+    inputs = pipeline.build_inputs(data, plan, stg)
+    if not inputs["regions"][0].host.is_pinned():
+        raise AssertionError("the decoder's staging buffer is not pinned")
+    copies = ST.h2d_copies
+    staged = pipeline.stage_inputs(inputs, plan, dev)
+    n = ST.h2d_copies - copies
+    sync(dev)
+    staged_equal("12 MP", staged, inputs, plan, dev)
+    if n != 2:
+        raise AssertionError(f"12 MP staged in {n} copies, not 2")
+    log(f"12 MP: the pinned staging's views == one pageable copy per array "
+        f"(dtype, shape, contiguity, values); {n} copies to the card")
+
+    # a copy held behind device work, then the buffer written over
+    other, other_planes = images[1]
+    with T.Decoder(device=dev) as d:
+        d.parse_header(data)
+        torch.cuda._sleep(100_000_000)  # ~50 ms, queued before the copy
+        t0 = time.perf_counter()
+        d.transfer()
+        first = d._device_inputs
+        d.parse_header(other)
+        d.transfer()
+        waited = (time.perf_counter() - t0) * 1e3
+        check_equal_numpy("the second image after a held copy", d.decode(),
+                          other_planes)
+        staged_equal("the first image after its buffer was rewritten",
+                     first, pipeline.build_inputs(data, plan), plan, dev)
+    log(f"a transfer queued behind ~50 ms of device work, then the next "
+        f"image's transfer by the same decoder: {waited:.1f} ms for both "
+        f"(the wait included); the first image's staged inputs unchanged, "
+        f"the second == golden")
+
+    rng = np.random.default_rng(seed)
+    # each decoder's first image is the largest: its buffer fits the rest
+    order = [0, 1] + [int(k) for k in rng.integers(0, len(images), 48)]
+    decs = [T.Decoder(device=dev), T.Decoder(device=dev)]
+    allocs0, copies0 = ST.host_allocs, ST.h2d_copies
+    pending = []
+    for n, k in enumerate(order):
+        d = decs[n % 2]
+        d.parse_header(images[k][0])
+        d.transfer()
+        if n == 1:
+            allocs0 = ST.host_allocs
+        pending.append((d, k))
+        if len(pending) == 2:
+            d0, k0 = pending.pop(0)
+            check_equal_numpy(f"alternating decode {n - 1}", d0.decode(),
+                              images[k0][1])
+    d0, k0 = pending.pop(0)
+    check_equal_numpy("alternating decode 49", d0.decode(), images[k0][1])
+    copies = ST.h2d_copies - copies0
+    allocs = ST.host_allocs - allocs0
+    for d in decs:
+        d.cleanup()
+    if copies != 2 * len(order) or allocs:
+        raise AssertionError(f"{len(order)} images: {copies} copies, "
+                             f"{allocs} staging buffers allocated after the "
+                             f"first image of each decoder")
+    log(f"two Decoders alternating over {len(order)} images of "
+        f"{len(heights)} sizes, each transfer before the other's decode: "
+        f"all == golden; staging.h2d_copies {copies} "
+        f"({copies / len(order):.0f} an image), staging.host_allocs "
+        f"{allocs} after each decoder's first image  [{card}]")
+
+
 def phase_api(dev: torch.device, card: str, data: bytes, other: bytes,
               expect, seed: int) -> None:
     """The rest of the Decoder API on the card: `decode_into` into pitched
@@ -2642,12 +2778,11 @@ def phase_batch_path(dev: torch.device, card: str, datas, merged_state):
             prelim)) for p in prelim])
     stages["build_inputs"], inputs = med(
         lambda: [pipeline.build_inputs(d, p) for d, p in zip(datas, plans)])
-    stages["merge_scan_inputs"], merged = med(
-        lambda: BT.merge_scan_inputs(sp, [i["scans"][0] for i in inputs]))
+    stages["merge_region"], merged = med(
+        lambda: BT.merge_region(sp, [i["scans"][0] for i in inputs]))
     stages["copy in"], _ = med(lambda: (
-        convert.scan_arrays(merged, dev, sp.cfg.fast_tables),
-        torch.from_numpy(merged["pos_base"]).to(dev),
-        torch.from_numpy(merged["pos_bound"]).to(dev),
+        convert.device_arrays(merged.arrays(), dev, sp.cfg.fast_tables,
+                              merged),
         torch.from_numpy(np.stack([i["qtables"] for i in inputs])).to(dev)))
     for name, ms in stages.items():
         log(f"batch stage {name}: {ms:.3f} ms for {B} images  [{card}]")
@@ -3271,6 +3406,7 @@ def main() -> int:
     timed(phase_device_destuff_path, dev, card, sparse,
           f"quality {QUALITY_SPARSE}")
     timed(phase_api, dev, card, data, sparse, expect, args.seed)
+    timed(phase_staging, dev, card, args.seed)
     mesh = make_mesh([dev] * SHARDS)
     k9 = timed(sharded_kernels, dev, data, card, mesh)
     slaunches, sby_slot = timed(phase_sharded_path, dev, data, card, mesh,

@@ -52,6 +52,7 @@ from .pipeline import (
     stage_inputs,
 )
 from .reader import parse
+from .staging import HostStaging
 from .utils.color import to_rgb
 
 
@@ -70,7 +71,9 @@ class Decoder:
 
     ``host_destuff=False`` stages each scan's raw bytes and destuffs them
     on the decoder's device (``ops/destuff.py``); the default destuffs on
-    the host, as in the JAX package."""
+    the host, as in the JAX package. The decoder stages through one host
+    buffer of its own (``staging.HostStaging``, pinned on a CUDA device),
+    which it reuses from image to image and lets go in :meth:`cleanup`."""
 
     def __init__(self, *, device=None, host_destuff: bool = True):
         self._device = resolve_device(device)
@@ -82,6 +85,7 @@ class Decoder:
         self._data: Optional[bytes] = None
         self._staged = None
         self._device_inputs = None
+        self._staging = HostStaging(self._device)
 
     # -- phase 0: logging toggle (jpeggpu.h:61-62) --
     def set_logging(self, enabled: bool) -> None:
@@ -121,7 +125,11 @@ class Decoder:
 
     def _host_inputs(self):
         if self._staged is None:
-            self._staged = build_inputs(self._data, self._require_plan())
+            plan = self._require_plan()
+            # the previous image's copies from the staging buffer are done
+            # before its host inputs are written over
+            self._staging.begin()
+            self._staged = build_inputs(self._data, plan, self._staging)
         return self._staged
 
     # -- phase 3: host->device staging (jpeggpu.h:90-93) --
@@ -322,6 +330,7 @@ class Decoder:
         self._data = None
         self._staged = None
         self._device_inputs = None
+        self._staging.release()
 
     def __enter__(self) -> "Decoder":
         return self

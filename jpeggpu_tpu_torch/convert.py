@@ -3,7 +3,7 @@
 The decoder has no weights; what crosses from the host (or from the JAX
 package, in the tests) is the staged state of one image: the scan geometry
 as plain ints and tuples, the per-scan numpy arrays that
-``pipeline.build_scan_inputs`` makes (``words``, ``seg_of_subseq``,
+``pipeline.build_inputs`` makes (``words``, ``seg_of_subseq``,
 ``seg_first_lane``, ``seg_num_subseq``, ``maxcode``, ``vsm``, ``huffval``)
 and the quantisation tables. The symbol table of K1, K2 and K4 is built here,
 from the packed tables under the plan's ``fast_tables``, whenever a scan or
@@ -18,21 +18,27 @@ include)`` and ``(tiles, du0, q)`` have the same shapes, types and meaning
 in both packages. The sharded decode's stacked shard inputs cross the
 same way (:func:`shard_arrays`). Nothing of the JAX package is imported
 here. A scan staged for the device destuff carries ``raw`` and
-``seg_sub_offset`` in place of ``words``.
+``seg_sub_offset`` in place of ``words``. Every staging goes through one
+helper, :func:`device_arrays`: a scan's or a shard's arrays and its symbol
+table in one region of host memory (:mod:`.staging`), copied to the device
+at once, the tensors views of that copy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import constants as C
+from . import staging
 from .config import Tuning
 from .debug import scope
-from .ops.huffman import ScanArrays, ScanConfig, build_symbol_table
+from .ops.huffman import (SYMTAB_BITS, ScanArrays, ScanConfig,
+                          build_symbol_table)
 
 GEOMETRY_FIELDS = ("lanes", "num_segments", "du_per_mcu", "mcus_per_seg",
                    "total_mcus", "comp_groups", "fast_tables", "tile_d",
@@ -72,17 +78,17 @@ def scan_config(geometry: Mapping) -> ScanConfig:
     )
 
 
-def symbol_table(maxcode, vsm, huffval, fast_tables: bool) -> torch.Tensor:
+def symbol_table(maxcode, vsm, huffval, fast_tables: bool) -> np.ndarray:
     """The symbol table of K1, K2 and K4 (``ops.huffman.build_symbol_table``)
-    of the packed tables under the plan's ``fast_tables``, as a CPU tensor
-    of its own. Built once per distinct set of tables: most streams carry
-    the same few (those of T.81 Annex K), and a build costs milliseconds
-    of eager tensor code on the host. A build runs in a
-    ``jpeggpu.symtab`` range; ``_symbol_table.cache_info()`` counts the
-    hits and misses."""
+    of the packed tables under the plan's ``fast_tables``: the cache's own
+    array, read-only. Built once per distinct set of tables: most streams
+    carry the same few (those of T.81 Annex K), and a build costs
+    milliseconds of eager tensor code on the host. A build runs in a
+    ``jpeggpu.symtab`` range; ``_symbol_table.cache_info()`` counts the hits
+    and misses."""
     key = tuple(np.ascontiguousarray(a, np.int32).tobytes()
                 for a in (maxcode, vsm, huffval))
-    return torch.from_numpy(_symbol_table(*key, bool(fast_tables)).copy())
+    return _symbol_table(*key, bool(fast_tables))
 
 
 @functools.lru_cache(maxsize=64)
@@ -92,80 +98,99 @@ def _symbol_table(maxcode: bytes, vsm: bytes, huffval: bytes,
         return np.frombuffer(b, np.int32).copy()
 
     with scope("jpeggpu.symtab"):
-        return build_symbol_table(i32(maxcode), i32(vsm), i32(huffval),
-                                  fast_tables)
+        table = build_symbol_table(i32(maxcode), i32(vsm), i32(huffval),
+                                   fast_tables)
+    table.flags.writeable = False
+    return table
+
+
+# the packed Huffman tables and the symbol table of a scan, as staged
+# (``staging.Field``s; ``pipeline.scan_fields`` lays them after the rest)
+TABLE_FIELDS = (("maxcode", np.int32, (C.MAX_HUFF_PER_SCAN, 16)),
+                ("vsm", np.int32, (C.MAX_HUFF_PER_SCAN, 16)),
+                ("huffval", np.int32, (C.MAX_HUFF_PER_SCAN * 256,)),
+                ("symtab", np.int16, (C.MAX_HUFF_PER_SCAN << SYMTAB_BITS,)))
+_TABLE_SHAPES = {name: shape for name, _, shape in TABLE_FIELDS}
+
+
+def device_arrays(arrays: Mapping[str, np.ndarray],
+                  device: torch.device | str, fast_tables: bool,
+                  region: Optional[staging.Region] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """A scan's or a shard's arrays (by their :class:`ScanArrays` names,
+    and ``pos_base`` / ``pos_bound`` of a merged scan) with their symbol
+    table (``symtab``), under the plan's ``fast_tables``, on ``device`` in
+    one copy; each tensor is a view of it. ``region``: the staging region
+    that ``arrays`` are the views of, symbol table included
+    (``pipeline.scan_region``, ``parallel.batch.merge_region``), which goes
+    as it lies; without one the arrays are packed into a region of their
+    own first: the uint32 word stream as its int32 bit patterns, the raw
+    bytes as uint8, everything else as int32."""
+    if region is None:
+        packed = {}
+        for name, a in arrays.items():
+            a = np.ascontiguousarray(a)
+            if a.dtype == np.uint32:
+                a = a.view(np.int32)
+            a = a.astype(np.uint8 if name == "raw" else np.int32, copy=False)
+            packed[name] = a.reshape(_TABLE_SHAPES.get(name, -1))
+        packed["symtab"] = symbol_table(
+            arrays["maxcode"], arrays["vsm"], arrays["huffval"], fast_tables)
+        region = staging.pack(packed)
+    return region.to(torch.device(device))
+
+
+def scan_arrays_of(t: Mapping[str, torch.Tensor], lead: int = 0) -> ScanArrays:
+    """The :class:`ScanArrays` of :func:`device_arrays`' tensors."""
+    return ScanArrays(
+        words=t["words"][lead:] if "words" in t else None,
+        raw=t.get("raw"), seg_sub_offset=t.get("seg_sub_offset"),
+        seg_of_subseq=t["seg_of_subseq"],
+        seg_first_lane=t["seg_first_lane"],
+        seg_num_subseq=t["seg_num_subseq"],
+        maxcode=t["maxcode"], vsm=t["vsm"], huffval=t["huffval"],
+        symtab=t["symtab"], lead_words=lead)
 
 
 def scan_arrays(scan_inputs: Mapping[str, np.ndarray],
-                device: torch.device | str, fast_tables: bool) -> ScanArrays:
+                device: torch.device | str, fast_tables: bool,
+                region: Optional[staging.Region] = None) -> ScanArrays:
     """Per-scan numpy arrays -> :class:`ScanArrays` on ``device``, with the
-    symbol table under the plan's ``fast_tables``. The uint32 word stream
-    is carried as its int32 bit patterns. A scan staged for the device
-    destuff (``raw`` and ``seg_sub_offset`` in place of ``words``) keeps
-    them as uint8 and int32 tensors, and ``words`` is None until the
-    destuff fills it (``pipeline.destuffed``)."""
-    def i32(name, shape):
-        a = np.ascontiguousarray(scan_inputs[name])
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        a = a.astype(np.int32, copy=False).reshape(shape)
-        return torch.from_numpy(a).to(device)
-
-    raw = "raw" in scan_inputs
-    return ScanArrays(
-        words=None if raw else i32("words", -1),
-        raw=(torch.from_numpy(np.ascontiguousarray(scan_inputs["raw"],
-                                                   np.uint8)).to(device)
-             if raw else None),
-        seg_sub_offset=i32("seg_sub_offset", -1) if raw else None,
-        seg_of_subseq=i32("seg_of_subseq", -1),
-        seg_first_lane=i32("seg_first_lane", -1),
-        seg_num_subseq=i32("seg_num_subseq", -1),
-        maxcode=i32("maxcode", (8, 16)),
-        vsm=i32("vsm", (8, 16)),
-        huffval=i32("huffval", -1),
-        symtab=symbol_table(scan_inputs["maxcode"], scan_inputs["vsm"],
-                            scan_inputs["huffval"], fast_tables).to(device),
-    )
+    symbol table under the plan's ``fast_tables``, in one copy
+    (:func:`device_arrays`). The uint32 word stream is carried as its int32
+    bit patterns. A scan staged for the device destuff (``raw`` and
+    ``seg_sub_offset`` in place of ``words``) keeps them as uint8 and int32
+    tensors, and ``words`` is None until the destuff fills it
+    (``pipeline.destuffed``). ``region``: as :func:`device_arrays` takes
+    it."""
+    return scan_arrays_of(device_arrays(scan_inputs, device, fast_tables,
+                                        region))
 
 
 def shard_arrays(inputs: Mapping[str, np.ndarray], d: int,
                  device: torch.device | str, fast_tables: bool) -> ScanArrays:
     """Shard ``d`` of stacked shard inputs -> :class:`ScanArrays` on
-    ``device``. ``inputs`` is what ``build_shard_inputs`` or
-    ``build_subseq_shard_inputs`` of either package returns: numpy arrays
-    with a leading shard axis (``words``, ``seg_of``, ``seg_first``,
-    ``seg_nsub``) and the Huffman tables, which all shards share. Where
-    ``inputs`` has ``prev_word`` (subsequence shards), the words are staged
-    behind the word before the shard, ``ScanArrays.words`` is the view that
-    starts after it and ``lead_words`` is 1 (see ``ops.huffman.ScanArrays``).
-    The symbol table is built under the plan's ``fast_tables``.
+    ``device``, in one copy (:func:`device_arrays`). ``inputs`` is what
+    ``build_shard_inputs`` or ``build_subseq_shard_inputs`` of either
+    package returns: numpy arrays with a leading shard axis (``words``,
+    ``seg_of``, ``seg_first``, ``seg_nsub``) and the Huffman tables, which
+    all shards share. Where ``inputs`` has ``prev_word`` (subsequence
+    shards), the words are staged behind the word before the shard,
+    ``ScanArrays.words`` is the view that starts after it and
+    ``lead_words`` is 1 (see ``ops.huffman.ScanArrays``). The symbol table
+    is built under the plan's ``fast_tables``.
     """
-    def i32(a, shape=-1):
-        a = np.asarray(a)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        return np.array(a, np.int32).reshape(shape)
-
-    words = i32(inputs["words"][d])
+    words = np.asarray(inputs["words"][d])
     lead = 1 if "prev_word" in inputs else 0
     if lead:
-        words = np.concatenate([i32(inputs["prev_word"][d]), words])
-    words_t = torch.from_numpy(words).to(device)
-    return ScanArrays(
-        words=words_t[lead:],
-        seg_of_subseq=torch.from_numpy(i32(inputs["seg_of"][d])).to(device),
-        seg_first_lane=torch.from_numpy(
-            i32(inputs["seg_first"][d])).to(device),
-        seg_num_subseq=torch.from_numpy(
-            i32(inputs["seg_nsub"][d])).to(device),
-        maxcode=torch.from_numpy(i32(inputs["maxcode"], (8, 16))).to(device),
-        vsm=torch.from_numpy(i32(inputs["vsm"], (8, 16))).to(device),
-        huffval=torch.from_numpy(i32(inputs["huffval"])).to(device),
-        symtab=symbol_table(inputs["maxcode"], inputs["vsm"],
-                            inputs["huffval"], fast_tables).to(device),
-        lead_words=lead,
-    )
+        words = np.concatenate([np.asarray(inputs["prev_word"][d]).reshape(-1)
+                                .astype(words.dtype), words.reshape(-1)])
+    t = device_arrays(dict(
+        words=words, seg_of_subseq=inputs["seg_of"][d],
+        seg_first_lane=inputs["seg_first"][d],
+        seg_num_subseq=inputs["seg_nsub"][d], maxcode=inputs["maxcode"],
+        vsm=inputs["vsm"], huffval=inputs["huffval"]), device, fast_tables)
+    return scan_arrays_of(t, lead)
 
 
 def from_reference_inputs(geometry: Mapping,

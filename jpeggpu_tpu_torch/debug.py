@@ -18,10 +18,10 @@ mismatch.
 Tracing: every layer of the host path and every decode stage runs inside
 a :class:`scope` range, which :func:`profile_trace` (or any
 ``torch.profiler`` window) records, and which is an NVTX range too where
-the stage knows its CUDA device (all but ``jpeggpu.inputs`` and
-``jpeggpu.symtab``). A range's parent is the range that encloses it on the
-same host thread; a batch's ranges share its ``jpeggpu.batch`` root. The
-names and what each covers:
+the stage knows its CUDA device (all but ``jpeggpu.inputs``,
+``jpeggpu.destuff.host`` and ``jpeggpu.symtab``). A range's parent is the
+range that encloses it on the same host thread; a batch's ranges share its
+``jpeggpu.batch`` root. The names and what each covers:
 
 - ``jpeggpu.batch``: one ``BatchDecoder.decode`` call, the request's root;
 - ``jpeggpu.parse``: one image's header walk (``reader.parse``), in
@@ -30,15 +30,24 @@ names and what each covers:
   plan and a group's padded one; ``Decoder.parse_header``);
 - ``jpeggpu.group``: a batch's grouping: the geometry keys, each group's
   ``group_pad`` and the check that its images share their tables;
+- ``jpeggpu.copy_in.wait``: the host's wait, before a call writes over a
+  decoder's staging buffer (``staging.HostStaging.begin``), for the copies
+  from it that the previous call issued (at the start of
+  ``BatchDecoder.decode``; in ``Decoder.transfer``, before
+  ``jpeggpu.inputs``);
 - ``jpeggpu.inputs``: one image's host staging (``pipeline.build_inputs``:
-  the native host destuff and the segment tables);
-- ``jpeggpu.merge``: one scan of a merged group (``merge_scan_inputs``);
-- ``jpeggpu.copy_in``: host arrays onto the device, symbol tables
-  included (``stage_merged``, ``pipeline.stage_inputs``, so also
-  ``Decoder.transfer``);
+  the segment tables, the Huffman and symbol tables and the words, written
+  into the staging buffer's regions);
+- ``jpeggpu.destuff.host``: inside it, one scan's host destuff (the native
+  pass: destuff, zero padding and byte swap);
+- ``jpeggpu.merge``: one scan of a merged group (``merge_region``);
+- ``jpeggpu.copy_in``: host arrays onto the device, one copy per scan's
+  region and one for the quantisation tables (``stage_merged``,
+  ``pipeline.stage_inputs``, so also ``Decoder.transfer``);
 - ``jpeggpu.symtab``: one symbol-table build, that is one miss of
   ``convert._symbol_table``'s cache (its ``cache_info()`` counts hits and
-  misses);
+  misses), inside ``jpeggpu.inputs`` or ``jpeggpu.merge`` (or
+  ``jpeggpu.copy_in`` for arrays staged by the JAX package);
 - ``jpeggpu.destuff``: the device destuff of a raw-staged scan;
 - ``jpeggpu.sync``: a scan's synchronisation (``make_ctx``,
   ``sync_states``, ``symbol_offsets``): K1 once a round;
@@ -55,8 +64,9 @@ names and what each covers:
   included: a merged group's, one copy per component for all its images,
   or one image's (``BatchDecoder``, ``Decoder.decode``).
 
-No range waits for the device but ``jpeggpu.sync.read`` and
-``jpeggpu.to_host``, which wrap waits the decode has anyway.
+No range waits for the device but ``jpeggpu.sync.read``,
+``jpeggpu.to_host`` and ``jpeggpu.copy_in.wait``, which wrap waits the
+decode has anyway.
 """
 
 from __future__ import annotations

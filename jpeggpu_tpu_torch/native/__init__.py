@@ -21,7 +21,7 @@ from .._build_dir import library_path
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "destuff.cpp")
-_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
+_FLAGS = ("-O3", "-shared", "-fPIC")
 _lock = threading.Lock()
 _lib = None
 _loaded = False
@@ -38,15 +38,11 @@ def _load() -> ctypes.CDLL | None:
                        capture_output=True, timeout=120)
         os.replace(tmp, so_path)
     lib = ctypes.CDLL(so_path)
-    lib.jpeggpu_destuff_seg.restype = ctypes.c_int64
-    lib.jpeggpu_destuff_seg.argtypes = [
+    lib.jpeggpu_destuff_words.restype = ctypes.c_int64
+    lib.jpeggpu_destuff_words.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int32,
-    ]
-    lib.jpeggpu_bswap32.restype = None
-    lib.jpeggpu_bswap32.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int64, ctypes.c_int64,
     ]
     return lib
 
@@ -63,33 +59,33 @@ def get_lib() -> ctypes.CDLL | None:
 
 
 def destuff_words(body: np.ndarray, seg_sub_offset: np.ndarray,
-                  num_subseq: int, lanes: int, seg_raw: np.ndarray,
-                  num_threads: int | None = None) -> np.ndarray | None:
-    """Destuff straight into the padded device word layout.
+                  num_subseq: int, seg_raw: np.ndarray,
+                  out: np.ndarray) -> bool:
+    """Destuff straight into ``out``, the padded device word layout.
 
-    One native pass produces the uint32[lanes * 32] array the device bit
-    reader consumes: segment-parallel destuff into the padded buffer plus an
-    in-place big-endian word conversion. ``seg_raw`` is the parser's
-    per-segment stuffed byte spans. Returns None if the machine has no C++
-    compiler or the stream's segments do not fit their windows (the caller
-    then takes the numpy destuffer, which clamps the same way).
+    One native pass on the calling thread writes the whole of ``out``
+    (uint32[lanes * 32], C order; what it held before does not matter, so
+    a reused staging buffer needs no clearing): each restart segment
+    destuffed into its window of subsequences, zero padded, its words
+    swapped to the host order in which the device bit reader takes them,
+    and zeros past the last subsequence. ``seg_raw`` is the parser's per-segment stuffed byte
+    spans. Returns False if the machine has no C++ compiler or the
+    stream's segments do not fit their windows (the caller then takes the
+    numpy destuffer, which clamps the same way).
     """
+    if (out.dtype != np.uint32 or not out.flags.c_contiguous
+            or not out.flags.writeable or out.size < num_subseq * 32):
+        raise ValueError("out must be a writeable, C-contiguous uint32 "
+                         f"array of at least {num_subseq * 32} words")
     lib = get_lib()
     if lib is None:
-        return None
-    if num_threads is None:
-        num_threads = min(os.cpu_count() or 1, 8)
+        return False
     body = np.ascontiguousarray(body, np.uint8)
     seg = np.ascontiguousarray(seg_sub_offset, np.int32)
     raw = np.ascontiguousarray(seg_raw, np.int64)
-    full = np.zeros(lanes * 128, np.uint8)
     # capacity bound is the real subsequence count: a corrupt final segment
     # must not bleed into the zero padding the decode relies on
-    rc = lib.jpeggpu_destuff_seg(
+    rc = lib.jpeggpu_destuff_words(
         body.ctypes.data, body.size, raw.ctypes.data, seg.ctypes.data,
-        seg.size, full.ctypes.data, num_subseq * 128, num_threads)
-    if rc < 0:
-        return None
-    words = full.view(np.uint32)
-    lib.jpeggpu_bswap32(words.ctypes.data, num_subseq * 32, num_threads)
-    return words
+        seg.size, out.ctypes.data, num_subseq, out.size)
+    return rc >= 0

@@ -4,7 +4,7 @@ The port of ``jpeggpu_tpu/parallel/batch.py``. Decoding is lane-parallel,
 so a group of B images of one pixel geometry that share their Huffman
 tables is one bigger decode: their staged arrays are concatenated along the
 lane axis (each image's restart segments become more independent segments,
-:func:`merge_scan_inputs`), the entropy decode runs once at B x lanes width
+:func:`merge_region`), the entropy decode runs once at B x lanes width
 (K1 once per sync round, then K2, or K4-K8 under a records plan, as
 ``ops.huffman.decode_scan`` dispatches on the plan's ``write_mode``), and
 the tail runs once per scan over the whole merged stream
@@ -49,15 +49,20 @@ from ..errors import InvalidArgument
 from ..ops.huffman import ScanArrays, decode_scan
 from ..pipeline import (DecodePlan, PlanSignature, ScanPlanStatic,
                         build_inputs, build_plan, crop, decode_pipeline,
-                        group_pad, resolve_device, scan_planes, stage_inputs)
+                        group_pad, resolve_device, scan_fields, scan_planes,
+                        stage_inputs)
 from ..reader import parse
+from ..staging import HostStaging, Region
+from ..staging import region as staging_region
 from . import Mesh
 from .segments import _on
 
 
-def merge_scan_inputs(sp: ScanPlanStatic,
-                      per_image: List[Dict]) -> Dict[str, np.ndarray]:
-    """Concatenate B images' staged arrays of one scan along the lane axis.
+def merge_region(sp: ScanPlanStatic, per_image: List[Dict],
+                 staging: Optional[HostStaging] = None) -> Region:
+    """Concatenate B images' staged arrays of one scan along the lane axis,
+    into one region (of ``staging``, or of its own) with the group's symbol
+    table; ``.arrays()`` of the region is the merged staged state.
 
     Segment indices are offset by ``b * num_segments`` and first lanes by
     ``b * lanes``; ``pos_base`` / ``pos_bound`` (int32 per lane) place image
@@ -80,25 +85,27 @@ def merge_scan_inputs(sp: ScanPlanStatic,
         raise ValueError(
             f"merged batch of {B} images x {total} positions overflows int32 "
             f"position indices; split into sub-batches")
+    out = staging_region(scan_fields(sp, B, merged=True), staging)
+    W = L * C.CHUNK_SIZE_WORDS
+    for b, i in enumerate(per_image):
+        lanes = slice(b * L, (b + 1) * L)
+        out["words"][b * W:(b + 1) * W] = i["words"]
+        np.add(i["seg_of_subseq"], b * cfg.num_segments,
+               out=out["seg_of_subseq"][lanes])
+        np.add(i["seg_first_lane"], b * L, out=out["seg_first_lane"][lanes])
+        out["seg_num_subseq"][lanes] = i["seg_num_subseq"]
     seg_local = np.concatenate([i["seg_of_subseq"] for i in per_image])
     seg_local = seg_local.astype(np.int64)
     img_of = np.repeat(np.arange(B, dtype=np.int64), L)
-    pos_base = img_of * total + seg_local * pps
-    pos_bound = np.minimum((seg_local + 1) * pps, total) + img_of * total
-    return dict(
-        words=np.concatenate([i["words"] for i in per_image]),
-        seg_of_subseq=np.concatenate(
-            [i["seg_of_subseq"] + b * cfg.num_segments
-             for b, i in enumerate(per_image)]),
-        seg_first_lane=np.concatenate(
-            [i["seg_first_lane"] + b * L for b, i in enumerate(per_image)]),
-        seg_num_subseq=np.concatenate(
-            [i["seg_num_subseq"] for i in per_image]),
-        pos_base=pos_base.astype(np.int32),
-        pos_bound=pos_bound.astype(np.int32),
-        maxcode=per_image[0]["maxcode"], vsm=per_image[0]["vsm"],
-        huffval=per_image[0]["huffval"],
-    )
+    out["pos_base"][...] = img_of * total + seg_local * pps
+    out["pos_bound"][...] = (np.minimum((seg_local + 1) * pps, total)
+                             + img_of * total)
+    first = per_image[0]
+    for name in ("maxcode", "vsm", "huffval"):
+        out[name][...] = first[name]
+    out["symtab"][...] = convert.symbol_table(
+        first["maxcode"], first["vsm"], first["huffval"], cfg.fast_tables)
+    return out
 
 
 def _tables_shared(per_image: List[Dict]) -> bool:
@@ -132,23 +139,30 @@ class MergedScan:
     pos_bound: torch.Tensor  # int32[B * lanes]
 
 
-def stage_merged(sig: PlanSignature, inputs: List[Dict], device: torch.device
+def stage_merged(sig: PlanSignature, inputs: List[Dict], device: torch.device,
+                 staging: Optional[HostStaging] = None
                  ) -> Tuple[List[MergedScan], torch.Tensor]:
     """Host inputs of B images of one plan (``pipeline.build_inputs``) ->
     their merged scans and their quantisation tables (int32[B, 4, 64]) on
-    ``device``. The symbol table is staged once, from image 0's tables."""
+    ``device``: per scan one region (of ``staging``, or of its own) in one
+    copy, and one for the tables. The symbol table is image 0's."""
     scans = []
     for s, sp in enumerate(sig.scans):
         with scope("jpeggpu.merge", device):
-            m = merge_scan_inputs(sp, [i["scans"][s] for i in inputs])
+            region = merge_region(sp, [i["scans"][s] for i in inputs],
+                                  staging)
         with scope("jpeggpu.copy_in", device):
-            scans.append(MergedScan(
-                arrs=convert.scan_arrays(m, device, sp.cfg.fast_tables),
-                pos_base=torch.from_numpy(m["pos_base"]).to(device),
-                pos_bound=torch.from_numpy(m["pos_bound"]).to(device)))
+            t = convert.device_arrays(region.arrays(), device,
+                                      sp.cfg.fast_tables, region)
+            scans.append(MergedScan(arrs=convert.scan_arrays_of(t),
+                                    pos_base=t["pos_base"],
+                                    pos_bound=t["pos_bound"]))
     with scope("jpeggpu.copy_in", device):
-        qtables = torch.from_numpy(np.stack([i["qtables"] for i in inputs]))
-        return scans, qtables.to(device)
+        q = staging_region([("qtables", np.int32,
+                             (len(inputs),) + inputs[0]["qtables"].shape)],
+                           staging)
+        np.stack([i["qtables"] for i in inputs], out=q["qtables"])
+        return scans, q.to(device)["qtables"]
 
 
 def _merged_scan_coeffs(sp: ScanPlanStatic, ms: MergedScan, batch: int):
@@ -204,6 +218,10 @@ class BatchDecoder:
     order: ``(route, images)`` with ``route`` one of "merged",
     "mesh_merged" (one entry per device) or "per_image", and ``images``
     the input indices decoded (a padded image repeats its index).
+
+    The decoder stages every call through one host buffer of its own
+    (``staging.HostStaging``, pinned on a CUDA device), reused from call to
+    call and grown to the largest; :meth:`release` lets it go.
     """
 
     def __init__(self, mesh: Optional[Mesh] = None, with_idct: bool = True,
@@ -216,6 +234,9 @@ class BatchDecoder:
         self.merged = merged
         self.device = None if mesh is not None else resolve_device(device)
         self.routes: List[Tuple[str, Tuple[int, ...]]] = []
+        # the host buffer every call stages through, pinned on CUDA
+        self._staging = HostStaging(self.device if mesh is None
+                                    else mesh.devices[0])
 
     def _groups(self, datas: Sequence[bytes],
                 prelim: Optional[List[DecodePlan]] = None) -> List[_Group]:
@@ -249,7 +270,7 @@ class BatchDecoder:
                 if g is None:
                     g = groups[plan.signature] = _Group(plan, [], [])
                 g.indices.append(i)
-                g.inputs.append(build_inputs(datas[i], plan))
+                g.inputs.append(build_inputs(datas[i], plan, self._staging))
         return list(groups.values())
 
     def _merged(self, g: _Group, indices: List[int], inputs: List[Dict],
@@ -265,7 +286,7 @@ class BatchDecoder:
         for lo in range(0, len(inputs), limit):
             with _on(device):
                 scans, qtables = stage_merged(sig, inputs[lo:lo + limit],
-                                              device)
+                                              device, self._staging)
                 planes = decode_merged(sig, scans, qtables, self.with_idct)
             # one copy per component for the group; image b's planes are
             # index b of each (C-contiguous)
@@ -298,6 +319,9 @@ class BatchDecoder:
                 prelim: Optional[List[DecodePlan]]
                 ) -> List[List[np.ndarray]]:
         self.routes = []
+        # the last call's copies from the staging buffer are done before
+        # this call writes over it
+        self._staging.begin()
         results: List[Optional[List[np.ndarray]]] = [None] * len(datas)
         for g in self._groups(datas, prelim):
             sig = g.plan.signature
@@ -330,11 +354,19 @@ class BatchDecoder:
                     results[i] = self._per_image(g, i, inputs, dev)
         return results  # type: ignore[return-value]
 
+    def release(self) -> None:
+        """Wait for the copies from the staging buffer and let it go; the
+        next :meth:`decode` allocates a new one."""
+        self._staging.release()
+
 
 def decode_batch(datas: Sequence[bytes], mesh: Optional[Mesh] = None,
                  with_idct: bool = True, *,
                  device=None) -> List[List[np.ndarray]]:
     """Decode a batch of JPEGs (:class:`BatchDecoder`); ``device=None`` and
     no mesh is the card."""
-    return BatchDecoder(mesh=mesh, with_idct=with_idct,
-                        device=device).decode(datas)
+    decoder = BatchDecoder(mesh=mesh, with_idct=with_idct, device=device)
+    try:
+        return decoder.decode(datas)
+    finally:
+        decoder.release()

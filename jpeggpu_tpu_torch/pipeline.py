@@ -52,6 +52,8 @@ from .ops.idct import idct_stream_to_planes
 from .ops.transpose import deinterleave
 from .ops.write import resolve_tile_mode
 from .reader import JpegStream, Scan, num_mcus_in_segment, parse
+from .staging import HostStaging, Region
+from .staging import region as staging_region
 from .tables import pack_huffman_tables
 
 
@@ -276,88 +278,123 @@ def build_plan(stream: JpegStream, tuning: Optional[Tuning] = None, *,
 
 # --- host -> device staging -------------------------------------------------
 
-def _destuff_host(buf: np.ndarray, scan: Scan, lanes: int) -> np.ndarray:
+def _destuff_host(buf: np.ndarray, scan: Scan, lanes: int,
+                  out: Optional[np.ndarray] = None) -> np.ndarray:
     """Host destuff -> big-endian uint32 words, padded to `lanes`
-    subsequences: the native C++ destuffer where the machine has a
-    compiler, the numpy one otherwise."""
+    subsequences, written whole into ``out`` (a fresh array where it is
+    None): the native C++ destuffer where the machine has a compiler, the
+    numpy one otherwise."""
     from . import native
     from .golden import destuff_scan_host
 
-    full = native.destuff_words(buf[scan.begin:scan.end], scan.segments[:, 0],
-                                scan.num_subsequences, lanes, scan.seg_raw)
-    if full is not None:
-        return full
-    out = destuff_scan_host(buf, scan)
-    words = np.frombuffer(out.tobytes(), dtype=">u4").astype(np.uint32)
-    full = np.zeros(lanes * C.CHUNK_SIZE_WORDS, np.uint32)
-    full[:len(words)] = words
-    return full
-
-
-def build_scan_inputs(buf: np.ndarray, scan: Scan,
-                      sp: ScanPlanStatic) -> Dict[str, np.ndarray]:
-    """Numpy arrays for one scan, padded to the plan's bucket shapes: the
-    destuffed word stream (``words``; under ``host_destuff=False`` the raw
-    scan body ``raw`` and each segment's first subsequence
-    ``seg_sub_offset`` instead), the per-lane segment tables and the packed
-    Huffman tables, staged once per image."""
-    lanes = sp.cfg.lanes
-    counts = scan.segments[:, 1]
-    seg_of = np.repeat(np.arange(scan.num_segments, dtype=np.int32), counts)
-    seg_of_subseq = np.full(lanes, max(scan.num_segments - 1, 0), np.int32)
-    seg_of_subseq[:len(seg_of)] = seg_of
-    seg_first_lane = np.zeros(lanes, np.int32)
-    seg_num_subseq = np.zeros(lanes, np.int32)
-    seg_first_lane[:len(seg_of)] = scan.segments[seg_of, 0]
-    seg_num_subseq[:len(seg_of)] = scan.segments[seg_of, 1]
-    if len(seg_of) < lanes and scan.num_segments:
-        seg_first_lane[len(seg_of):] = scan.segments[-1, 0]
-        seg_num_subseq[len(seg_of):] = scan.segments[-1, 1]
-    maxcode, vsm, huffval = pack_huffman_tables(scan.huff_tables)
-    out = dict(
-        seg_of_subseq=seg_of_subseq,
-        seg_first_lane=seg_first_lane,
-        seg_num_subseq=seg_num_subseq,
-        maxcode=maxcode,
-        vsm=vsm,
-        huffval=huffval,
-    )
-    if sp.host_destuff:
-        out["words"] = _destuff_host(buf, scan, lanes)
-    else:
-        raw = np.zeros(sp.scan_bytes_padded, np.uint8)
-        raw[:scan.end - scan.begin] = buf[scan.begin:scan.end]
-        seg_sub_offset = np.full(sp.num_segments_padded,
-                                 scan.num_subsequences, np.int32)
-        seg_sub_offset[:scan.num_segments] = scan.segments[:, 0]
-        out["raw"] = raw
-        out["seg_sub_offset"] = seg_sub_offset
+    if out is None:
+        out = np.empty(lanes * C.CHUNK_SIZE_WORDS, np.uint32)
+    with scope("jpeggpu.destuff.host"):
+        if native.destuff_words(buf[scan.begin:scan.end], scan.segments[:, 0],
+                                scan.num_subsequences, scan.seg_raw, out):
+            return out
+        words = np.frombuffer(destuff_scan_host(buf, scan).tobytes(), ">u4")
+        out[:len(words)] = words
+        out[len(words):] = 0
     return out
 
 
-def build_inputs(data: bytes | np.ndarray, plan: DecodePlan) -> Dict:
+# the per-lane segment tables of a scan
+_LANE_TABLES = ("seg_of_subseq", "seg_first_lane", "seg_num_subseq")
+
+
+def scan_fields(sp: ScanPlanStatic, batch: int = 1, merged: bool = False):
+    """The fields of one scan's staging region (``staging.Region``): the
+    word stream (under ``host_destuff=False`` the raw body and each
+    segment's first subsequence), the per-lane segment tables, for a
+    merged group of ``batch`` images the position bounds, and the Huffman
+    and symbol tables."""
+    lanes = batch * sp.cfg.lanes
+    if sp.host_destuff:
+        fields = [("words", np.uint32, (lanes * C.CHUNK_SIZE_WORDS,))]
+    else:
+        fields = [("raw", np.uint8, (sp.scan_bytes_padded,)),
+                  ("seg_sub_offset", np.int32, (sp.num_segments_padded,))]
+    fields += [(name, np.int32, (lanes,)) for name in _LANE_TABLES]
+    if merged:
+        fields += [(name, np.int32, (lanes,))
+                   for name in ("pos_base", "pos_bound")]
+    return fields + list(convert.TABLE_FIELDS)
+
+
+def scan_region(buf: np.ndarray, scan: Scan, sp: ScanPlanStatic,
+                staging: Optional[HostStaging] = None) -> Region:
+    """One scan's region (of ``staging``, or of its own) with its arrays
+    written, padded to the plan's bucket shapes: the destuffed word stream
+    (``words``, which the native destuffer writes straight into it; under
+    ``host_destuff=False`` the raw scan body ``raw`` and each segment's
+    first subsequence ``seg_sub_offset`` instead), the per-lane segment
+    tables, the packed Huffman tables and the symbol table."""
+    region = staging_region(scan_fields(sp), staging)
+    counts = scan.segments[:, 1]
+    seg_of = np.repeat(np.arange(scan.num_segments, dtype=np.int32), counts)
+    n = len(seg_of)
+    region["seg_of_subseq"][:n] = seg_of
+    region["seg_of_subseq"][n:] = max(scan.num_segments - 1, 0)
+    region["seg_first_lane"][:n] = scan.segments[seg_of, 0]
+    region["seg_num_subseq"][:n] = scan.segments[seg_of, 1]
+    last = scan.segments[-1] if scan.num_segments else (0, 0)
+    region["seg_first_lane"][n:] = last[0]
+    region["seg_num_subseq"][n:] = last[1]
+    maxcode, vsm, huffval = pack_huffman_tables(scan.huff_tables)
+    region["maxcode"][...] = maxcode
+    region["vsm"][...] = vsm
+    region["huffval"][...] = huffval
+    region["symtab"][...] = convert.symbol_table(
+        maxcode, vsm, huffval, sp.cfg.fast_tables)
+    if sp.host_destuff:
+        _destuff_host(buf, scan, sp.cfg.lanes, region["words"])
+    else:
+        raw, size = region["raw"], scan.end - scan.begin
+        raw[:size] = buf[scan.begin:scan.end]
+        raw[size:] = 0
+        seg_sub_offset = region["seg_sub_offset"]
+        seg_sub_offset[:scan.num_segments] = scan.segments[:, 0]
+        seg_sub_offset[scan.num_segments:] = scan.num_subsequences
+    return region
+
+
+def build_inputs(data: bytes | np.ndarray, plan: DecodePlan,
+                 staging: Optional[HostStaging] = None) -> Dict:
+    """The host inputs of a decode: per scan its arrays (the staged state:
+    :func:`scan_region`'s, the symbol table left out) and the quantisation
+    tables (int32[4, 64]), as views of their regions (``regions``, one per
+    scan, and ``qtables_region``), which :func:`stage_inputs` copies whole.
+    ``staging`` is the decoder's (``staging.HostStaging``), whose call has
+    begun; without one each region is a buffer of its own."""
     buf = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
         else np.asarray(data, np.uint8)
     try:
         with scope("jpeggpu.inputs"):
-            scans = [build_scan_inputs(buf, scan, sp) for scan, sp in
-                     zip(plan.stream.scans, plan.signature.scans)]
+            regions = [scan_region(buf, scan, sp, staging) for scan, sp in
+                       zip(plan.stream.scans, plan.signature.scans)]
+            q = staging_region(
+                [("qtables", np.int32, plan.stream.qtables.shape)], staging)
+            q["qtables"][...] = plan.stream.qtables
     except MemoryError as exc:
         raise OutOfHostMemory(
             f"host staging buffers exceed available memory: {exc}") from exc
-    return dict(scans=scans, qtables=plan.stream.qtables.astype(np.int32))
+    return dict(scans=[r.arrays() for r in regions], qtables=q["qtables"],
+                regions=regions, qtables_region=q)
 
 
 def stage_inputs(inputs: Dict, plan: DecodePlan, device: torch.device) -> Dict:
     """Copy the host inputs of :func:`build_inputs` to ``device``, with each
     scan's symbol table under its plan's ``fast_tables``: the word stream,
     or for a scan planned with ``host_destuff=False`` its raw bytes, which
-    :func:`destuffed` turns into words on the device."""
+    :func:`destuffed` turns into words on the device. One copy per scan's
+    region and one for the quantisation tables."""
     with scope("jpeggpu.copy_in", device):
         return dict(
-            scans=[convert.scan_arrays(s, device, sp.cfg.fast_tables)
-                   for s, sp in zip(inputs["scans"], plan.signature.scans)],
-            qtables=torch.from_numpy(inputs["qtables"]).to(device),
+            scans=[convert.scan_arrays(s, device, sp.cfg.fast_tables, r)
+                   for s, sp, r in zip(inputs["scans"], plan.signature.scans,
+                                       inputs["regions"])],
+            qtables=inputs["qtables_region"].to(device)["qtables"],
         )
 
 

@@ -194,8 +194,7 @@ def test_merge_refuses_raw_scans(data_420_rst2):
     plan = pipeline.build_plan(T.parse(data_420_rst2), host_destuff=False)
     inputs = pipeline.build_inputs(data_420_rst2, plan)
     with pytest.raises(ValueError, match="host_destuff"):
-        B.merge_scan_inputs(plan.signature.scans[0],
-                            [inputs["scans"][0]] * 2)
+        B.merge_region(plan.signature.scans[0], [inputs["scans"][0]] * 2)
 
 
 # --- decode_into ------------------------------------------------------------

@@ -345,13 +345,13 @@ def test_merge_scan_inputs_refuses_int32_overflow():
     plan = pipeline.build_plan(T.parse(data))
     sp, = plan.signature.scans
     per_image = [pipeline.build_inputs(data, plan)["scans"][0]] * 2
-    merged = B.merge_scan_inputs(sp, per_image)
+    merged = B.merge_region(sp, per_image).arrays()
     assert merged["pos_base"].dtype == merged["pos_bound"].dtype == np.int32
     unit = sp.cfg.du_per_mcu * 64
     big = dataclasses.replace(sp, cfg=dataclasses.replace(
         sp.cfg, total_mcus=-(-2 ** 30 // unit)))
     with pytest.raises(ValueError, match="position"):
-        B.merge_scan_inputs(big, per_image)
+        B.merge_region(big, per_image)
     # the bit offsets of the merged width: the decode's context refuses them
     arrs = B.stage_merged(plan.signature, [
         pipeline.build_inputs(data, plan)] * 2, _CPU)[0][0].arrs

@@ -26,12 +26,14 @@ _CPU = torch.device("cpu")
 _S420 = [(2, 2), (1, 1), (1, 1)]
 BATCH_SPANS = {
     "jpeggpu.batch", "jpeggpu.parse", "jpeggpu.plan", "jpeggpu.group",
-    "jpeggpu.inputs", "jpeggpu.merge", "jpeggpu.copy_in", "jpeggpu.symtab",
+    "jpeggpu.inputs", "jpeggpu.destuff.host", "jpeggpu.merge",
+    "jpeggpu.copy_in", "jpeggpu.copy_in.wait", "jpeggpu.symtab",
     "jpeggpu.sync", "jpeggpu.sync.read", "jpeggpu.write.fused",
     "jpeggpu.tail", "jpeggpu.dc", "jpeggpu.idct_fused", "jpeggpu.to_host",
 }
 DECODER_SPANS = {
     "jpeggpu.parse", "jpeggpu.plan", "jpeggpu.inputs", "jpeggpu.copy_in",
+    "jpeggpu.copy_in.wait", "jpeggpu.destuff.host",
     "jpeggpu.sync", "jpeggpu.tail", "jpeggpu.to_host",
 }
 
@@ -140,6 +142,15 @@ def test_batch_spans_nest(traced_batch):
     copies = [s for s in spans if s[0] == "jpeggpu.copy_in"]
     assert copies and all(_ancestors(s, spans) == ["jpeggpu.batch"]
                           for s in copies)
+    # one wait for the last call's copies, before the batch writes over
+    # its staging buffer; one host destuff an image, inside its staging
+    waits = [s for s in spans if s[0] == "jpeggpu.copy_in.wait"]
+    assert len(waits) == 1 and _ancestors(waits[0], spans) == [
+        "jpeggpu.batch"]
+    destuffs = [s for s in spans if s[0] == "jpeggpu.destuff.host"]
+    assert len(destuffs) == 3 and all(
+        _ancestors(s, spans) == ["jpeggpu.inputs", "jpeggpu.batch"]
+        for s in destuffs)
     # one tail a scan of the merged group (its two images at once) and one
     # of the image on its own; one merge a scan of the merged group
     assert sum(s[0] == "jpeggpu.tail" for s in spans) == 2
@@ -180,10 +191,14 @@ def test_decoder_phases_open_their_spans(one_thread):
     spans = _spans(prof)
     names = {s[0] for s in spans}
     assert names >= DECODER_SPANS, DECODER_SPANS - names
-    # the host destuff and the copy-in are apart, each at the top
+    # the host destuff and the copy-in are apart, each at the top, and so
+    # is the wait for the last copy before the staging buffer is rewritten
     for name in ("jpeggpu.inputs", "jpeggpu.copy_in", "jpeggpu.parse",
-                 "jpeggpu.plan", "jpeggpu.to_host"):
+                 "jpeggpu.plan", "jpeggpu.to_host", "jpeggpu.copy_in.wait"):
         assert all(_parent(s, spans) is None for s in spans if s[0] == name)
+    destuffs = [s for s in spans if s[0] == "jpeggpu.destuff.host"]
+    assert len(destuffs) == 1
+    assert _parent(destuffs[0], spans)[0] == "jpeggpu.inputs"
     _assert_golden([data], [planes])
 
 
