@@ -94,7 +94,9 @@ line) on the first phase that fails; nothing is caught and carried past:
    up to four windows, and then fails the run; the number taken again is
    logged at the end. Then
    end-to-end ms and MP/s with
-   and without host staging;
+   and without host staging, and the host stages one by one, the first
+   `reader.parse` alone (median of 20), whose every scan must take the
+   native segment walk (`reader.walks`);
 6b. the batch path (`parallel/batch.py`): eight 12 MP images at quality
    90 (seeds seed .. seed+7) through `BatchDecoder(device=dev).decode`, one
    merged group at 8 x lanes: K1 held against its plain version on a round
@@ -200,7 +202,8 @@ import torch
 import jpeggpu_tpu_torch as T
 from jpeggpu_tpu_torch import constants as C
 from jpeggpu_tpu_torch import bench as BE
-from jpeggpu_tpu_torch import convert, golden, kernels, native, pipeline
+from jpeggpu_tpu_torch import (convert, golden, kernels, native, pipeline,
+                               reader)
 from jpeggpu_tpu_torch.bench import (FULL_H, FULL_W, QUALITY, device_work,
                                      make_image, profiled, repeat_strip, smi,
                                      synthetic_image, tiled_golden)
@@ -1240,6 +1243,14 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
         return host_ms(fn, dev)
 
     stages = {}
+    # the parse alone, and that its segment walk was the native one
+    walks = dict(reader.walks)
+    stages["reader.parse (median of 20)"], stream = host_ms(
+        lambda: T.parse(data), dev, reps=20)
+    took = {k: reader.walks[k] - walks[k] for k in walks}
+    if took != {"native": 20 * len(stream.scans), "numpy": 0}:
+        raise AssertionError(f"the 12 MP parse took the walks {took}, not "
+                             "the native one on every scan")
     stages["parse + plan"], plan = med(
         lambda: pipeline.build_plan(T.parse(data)))
     stages["host destuff + tables"], inputs = med(

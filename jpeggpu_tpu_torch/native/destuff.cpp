@@ -13,7 +13,7 @@
 // frame in about a millisecond, and starting and joining threads costs as
 // much and adds their scheduling to every call (PERF.md, §6).
 //
-// Build: c++ -O3 -shared -fPIC destuff.cpp -o libjpeggpu_host.so
+// Build: c++ -O3 -shared -fPIC destuff.cpp walk.cpp -o libjpeggpu_host.so
 
 #include <cstdint>
 #include <cstring>
@@ -57,8 +57,8 @@ extern "C" {
 // (out_words uint32, any content beforehand: it is written whole).
 // seg_raw holds each segment's stuffed byte span (start, end pairs,
 // relative to `scan`, end excluding the restart marker) as discovered by
-// the host parser's vectorized segment walk (reader.py); seg_sub_offset
-// each segment's first subsequence. Segment s fills the window
+// the host parser's segment walk (walk.cpp, or reader.py's numpy walk);
+// seg_sub_offset each segment's first subsequence. Segment s fills the window
 // [seg_sub_offset[s], seg_sub_offset[s + 1]) subsequences (the last one up
 // to num_subseq): its destuffed bytes, zeros to the window's end, then each
 // word swapped from big-endian to host order; words outside every window
