@@ -88,15 +88,13 @@ line) on the first phase that fails; nothing is caught and carried past:
    the card decodes, / the longest lane's symbols). The profiler's window
    of one `sync_states` must show one K1 launch per round and, besides the
    one read per round, no more than a set-up of two launches. Every
-   profiler window is bracketed by marker launches (`bench.profiled`): one
+   profiler window is bracketed by marker launches (`profiled`): one
    that lost its opening or closing markers, or all device work, is taken
    again with more opening markers and the host idle longer at both ends,
    up to four windows, and then fails the run; the number taken again is
-   logged at the end. Then
-   end-to-end ms and MP/s with
-   and without host staging, and the host stages one by one, the first
-   `reader.parse` alone (median of 20), whose every scan must take the
-   native segment walk (`reader.walks`);
+   logged at the end. Also end-to-end ms and MP/s with and without host
+   staging, and one `reader.parse`, whose every scan must take the native
+   segment walk (`reader.walks`);
 6b. the batch path (`parallel/batch.py`): eight 12 MP images at quality
    90 (seeds seed .. seed+7) through `BatchDecoder(device=dev).decode`, one
    merged group at 8 x lanes: K1 held against its plain version on a round
@@ -149,19 +147,13 @@ line) on the first phase that fails; nothing is caught and carried past:
    card, each decoding 2 of the batch's 12 MP images through `MultiHostBatchDecoder`
    and holding its planes against golden's SHA-256 (golden of a 12 MP
    image is its strip's planes repeated, `tiled_golden`, checked against
-   golden of the whole image first);
-   process 0's launches counted, per-call ms of both runs. The two
-   processes time-slice one card: not a scaling result;
-6g. the bench (`python -m jpeggpu_tpu_torch.bench`, whose images this
-   script shares: `synthetic_image`, `repeat_strip`, `tiled_golden`,
-   `make_image`): each mode once at 12 MP with few iterations (the
-   headline, whose JSON line is printed, `--single`, `--e2e`, `--batch`,
-   `--all`, `--profile`), every timed output held against golden by the
-   bench's gate; the non-repeating full frame (`bench.frame_image`) ==
-   golden's SHA-256 on the default path, under `Tuning(write_mode="auto")`
-   (K2 launched, not K4), through the records path (`tile_mode="auto"`)
-   and with the device destuff; its sync rounds, symbols per lane and K1 /
-   K2 launches and ms beside the strip image's;
+   golden of the whole image first); process 0's launches counted;
+6g. the frame of the `photo12mp.rst` cell (`benchmark.inputs`, the cell's
+   parameters: PIL's libjpeg, noise stepping by bands of rows, so that no
+   two restart segments repeat) == golden on the paths the cell bypasses:
+   the default path, under `Tuning(write_mode="auto")` (K2 launched, not
+   K4), through the records path (`tile_mode="auto"`) and with the device
+   destuff;
 6h. the host staging (`staging.py`): at 12 MP the pinned staging
    region's device views torch.equal to one pageable copy per array, in
    two copies; a transfer whose copy waits behind device work, then the
@@ -186,6 +178,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import pathlib
@@ -201,12 +194,8 @@ import torch
 
 import jpeggpu_tpu_torch as T
 from jpeggpu_tpu_torch import constants as C
-from jpeggpu_tpu_torch import bench as BE
 from jpeggpu_tpu_torch import (convert, golden, kernels, native, pipeline,
                                reader)
-from jpeggpu_tpu_torch.bench import (FULL_H, FULL_W, QUALITY, device_work,
-                                     make_image, profiled, repeat_strip, smi,
-                                     synthetic_image, tiled_golden)
 from jpeggpu_tpu_torch.encoder import EncodeSpec, encode
 from jpeggpu_tpu_torch.ops import dc as DC
 from jpeggpu_tpu_torch.ops import destuff as DS
@@ -268,6 +257,9 @@ TILES = T.Tuning(write_mode="tiles", tile_mode="super")
 LANE = T.Tuning(write_mode="tiles", tile_mode="lane")
 AUTO = T.Tuning(write_mode="tiles")
 
+FULL_W, FULL_H, QUALITY = 4032, 3024, 90
+STRIP_ROWS = 9
+S420 = [(2, 2), (1, 1), (1, 1)]
 QUALITY_SPARSE = 30  # the same image with > 55 data units per subsequence
 SHARDS = 4  # shards of the sharded decode, all on the one card
 BATCH = 8  # images of the batch, the reference bench's default
@@ -279,6 +271,93 @@ def log(msg: str) -> None:
 
 
 # --- images -----------------------------------------------------------------
+
+def synthetic_image(h: int, w: int, seed: int, sigma=4.2) -> np.ndarray:
+    """Photo-like RGB test image: a smooth random field (bilinear
+    interpolation of a coarse grid) plus Gaussian noise of deviation
+    ``sigma``, a number or one per row."""
+    rng = np.random.default_rng(seed)
+    grid = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3)).astype(np.float32)
+    ys = np.arange(h, dtype=np.float32) / 32.0
+    xs = np.arange(w, dtype=np.float32) / 32.0
+    y0, x0 = ys.astype(np.int64), xs.astype(np.int64)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    top = grid[y0][:, x0] * (1 - fx) + grid[y0][:, x0 + 1] * fx
+    bot = grid[y0 + 1][:, x0] * (1 - fx) + grid[y0 + 1][:, x0 + 1] * fx
+    sigma = np.asarray(sigma, np.float32)
+    if sigma.ndim:
+        sigma = sigma[:, None, None]
+    img = top * (1 - fy) + bot * fy + rng.normal(0, 1, top.shape) * sigma
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _sof_height(head: bytearray, height: int) -> None:
+    pos = 2
+    while head[pos + 1] != C.MARKER_SOF0:
+        pos += 2 + int.from_bytes(head[pos + 2:pos + 4], "big")
+    head[pos + 5:pos + 7] = height.to_bytes(2, "big")
+
+
+def repeat_strip(strip: bytes, height: int) -> bytes:
+    """A JPEG of `height` lines from a strip JPEG whose restart interval is
+    one MCU row: the strip's restart segments (independent by construction)
+    are repeated in turn, one per MCU row of the new image, RSTn renumbered
+    mod 8, the SOF height patched. A height that is no whole number of MCU
+    rows ends in a partial row, which the decoder crops."""
+    stream = T.parse(strip)
+    scan, = stream.scans
+    if stream.restart_interval != scan.num_mcus_x:
+        raise ValueError("the strip's restart interval is not one MCU row")
+    rows = -(-height // (8 * stream.ss_max_y))
+    head = bytearray(strip[:scan.begin])
+    _sof_height(head, height)
+    body = strip[scan.begin:scan.end]
+    segs = [body[a:b] for a, b in scan.seg_raw]
+    out = bytearray(head)
+    for r in range(rows):
+        if r:
+            out += bytes([0xFF, C.MARKER_RST0 + ((r - 1) & 7)])
+        out += segs[r % len(segs)]
+    out += bytes([0xFF, C.MARKER_EOI])
+    return bytes(out)
+
+
+def tiled_golden(strip: bytes, height: int):
+    """Golden's planes of ``repeat_strip(strip, height)``: each MCU row is
+    a restart segment of its own, so the image's planes are the strip's,
+    repeated cyclically and cropped to the components' heights (golden
+    decodes only the strip)."""
+    planes = golden.decode(strip)
+    stream = T.parse(strip)
+    out = []
+    for p, comp in zip(planes, stream.components):
+        comp_h = -(-height * comp.ss_y // stream.ss_max_y)
+        out.append(np.tile(p, (-(-comp_h // p.shape[0]), 1))[:comp_h])
+    return out
+
+
+def make_image(seed: int, quality: int, strip_rows: int = STRIP_ROWS,
+               width: int = FULL_W, height: int = FULL_H):
+    """The strip image: a strip of `strip_rows` MCU rows of
+    :func:`synthetic_image` encoded with the numpy encoder (4:2:0, restart
+    interval one MCU row), and the image of `height` lines that repeats
+    its restart segments. Returns (strip, image), made once per set of
+    arguments."""
+    return _make_image(seed, quality, strip_rows, width, height)
+
+
+@functools.lru_cache(maxsize=None)
+def _make_image(seed, quality, strip_rows, width, height):
+    t0 = time.perf_counter()
+    strip_img = synthetic_image(16 * strip_rows, width, seed)
+    strip = encode(strip_img, EncodeSpec(
+        quality=quality, sampling=S420, restart_interval=-(-width // 16)))
+    data = repeat_strip(strip, height)
+    log(f"{width}x{height} JPEG at quality {quality}: {len(data)} bytes "
+        f"from a {strip_rows}-row strip, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return strip, data
+
 
 def small_streams(seed: int):
     """Every stream of the bit-exact matrix and the robustness streams that
@@ -296,7 +375,97 @@ def small_streams(seed: int):
 # --- helpers ----------------------------------------------------------------
 
 def sync(dev: torch.device) -> None:
-    torch.cuda.synchronize(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def smi(query: str) -> str:
+    """One line of `nvidia-smi --query-gpu=<query>` for the card."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def on_card(e) -> bool:
+    """A profiler event that is device work: a kernel or a copy, not the
+    device-side range of a `jpeggpu.*` scope (`debug.scope`), whose time
+    is that of the kernels inside it."""
+    from torch.autograd import DeviceType
+
+    return e.device_type == DeviceType.CUDA and not e.is_user_annotation
+
+
+MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep
+MARKER_CYCLES = 1000
+# one try each: (host seconds idle before the first launch of a profiler
+# window and after its last, marker launches that open the window)
+PROFILER_TRIES = ((0.0, 64), (0.01, 256), (0.1, 1024), (1.0, 4096))
+# profiler windows taken again because they lost device events, and the
+# most opening markers a window that counted lost
+windows_lost = 0
+markers_lost_max = 0
+
+
+def _marker(dev: torch.device) -> None:
+    """One short launch that brackets a profiler window, synchronised."""
+    with torch.cuda.device(dev):
+        torch.cuda._sleep(MARKER_CYCLES)
+    sync(dev)
+
+
+def profiled(dev: torch.device, run):
+    """The device events (`on_card`) of one `run()` in a torch.profiler
+    window, in order of their start, marker launches left out.
+
+    The profiler can lose the first device events of a window: none, the
+    first launch, tens of them, or all of a short window. So a window opens
+    with marker launches, which may be lost, and closes with one: it counts
+    where its first and its last device events are markers and `run`
+    showed some device work. A window that does not count is logged,
+    counted in
+    `windows_lost` and taken again, with more markers to open it and the
+    host idle for longer at both ends (`PROFILER_TRIES`); fails where no
+    window counts. The most opening markers lost in a window that counted
+    is kept in `markers_lost_max`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    global windows_lost, markers_lost_max
+    for attempt, (pad, lead) in enumerate(PROFILER_TRIES, 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(lead):
+                _marker(dev)
+            run()
+            sync(dev)
+            _marker(dev)
+            time.sleep(pad)
+        events = sorted((e for e in prof.events() if on_card(e)),
+                        key=lambda e: e.time_range.start)
+        work = [e for e in events if MARKER not in e.name]
+        opened = bool(events) and MARKER in events[0].name
+        closed = bool(events) and MARKER in events[-1].name
+        seen = len(events) - len(work)
+        if opened and closed and work:
+            markers_lost_max = max(markers_lost_max, lead + 1 - seen)
+            return work
+        windows_lost += 1
+        log(f"profiler window {attempt} of {len(PROFILER_TRIES)} (host idle "
+            f"{pad * 1e3:.0f} ms at each end, {lead} + 1 markers) lost "
+            f"device events: {seen} markers and {len(work)} events of the "
+            f"run seen, the first "
+            + ", ".join(f"{e.name[:40]} at {e.time_range.start:.1f} us"
+                        for e in events[:3]))
+    raise AssertionError(f"the profiler saw no whole window of device work "
+                         f"in {len(PROFILER_TRIES)} tries")
+
+
+def device_work(dev: torch.device, run):
+    """(kernel name, device ms) of each launch the profiler sees in one
+    `run()` (`profiled`)."""
+    return [(e.name, e.self_device_time_total / 1e3)
+            for e in profiled(dev, run)]
 
 
 def time_ms(fn, dev: torch.device, launches: int = 20, reps: int = 5):
@@ -1231,89 +1400,31 @@ def profile_decode(dev, card, label, run, decode_ms, own) -> None:
 
 def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
                           decode_ms: float, tiles_decode_ms: float):
-    """Host clock per stage of one decode (each stage ends in a
-    synchronise, median of 7) on the default path and, for the write stage
-    and the DC stage, on the records path; then each path's device busy and
-    idle share, the sync loop's device work, and K1's and K2's cycles per
-    symbol of the longest lane. Returns {kernel: (ms in the decode, cycles
-    per symbol)} for K1 and K2, K3's per-launch times inside the default
-    path's decode, and the records path's per-launch times of its kernels
-    inside the decode by kernel symbol."""
-    def med(fn):
-        return host_ms(fn, dev)
-
-    stages = {}
-    # the parse alone, and that its segment walk was the native one
+    """Each path's device busy and idle share, the sync loop's device
+    work, and K1's and K2's cycles per symbol of the longest lane, after
+    one parse whose every scan must take the native segment walk. Returns
+    {kernel: (ms in the decode, cycles per symbol)} for K1 and K2, K3's
+    per-launch times inside the default path's decode, and the records
+    path's per-launch times of its kernels inside the decode by kernel
+    symbol."""
     walks = dict(reader.walks)
-    stages["reader.parse (median of 20)"], stream = host_ms(
-        lambda: T.parse(data), dev, reps=20)
+    stream = T.parse(data)
     took = {k: reader.walks[k] - walks[k] for k in walks}
-    if took != {"native": 20 * len(stream.scans), "numpy": 0}:
+    if took != {"native": len(stream.scans), "numpy": 0}:
         raise AssertionError(f"the 12 MP parse took the walks {took}, not "
                              "the native one on every scan")
-    stages["parse + plan"], plan = med(
-        lambda: pipeline.build_plan(T.parse(data)))
-    stages["host destuff + tables"], inputs = med(
-        lambda: pipeline.build_inputs(data, plan))
+    plan = pipeline.build_plan(stream)
+    staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan), plan,
+                                   dev)
     sp, = plan.signature.scans
-    # the symbol table that "copy in" builds: by its builder, and through
-    # the cache that "copy in" takes after its first decode of these tables
-    packed = tuple(inputs["scans"][0][k] for k in ("maxcode", "vsm", "huffval"))
-    stages["symbol table built (build_symbol_table)"], _ = med(
-        lambda: H.build_symbol_table(*packed, sp.cfg.fast_tables))
-    stages["symbol table cached (convert.symbol_table)"], _ = med(
-        lambda: convert.symbol_table(*packed, sp.cfg.fast_tables))
-    stages["copy in"], staged = med(
-        lambda: pipeline.stage_inputs(inputs, plan, dev))
     cfg, arrs, qtables = sp.cfg, staged["scans"][0], staged["qtables"]
-    stages["make_ctx"], ctx = med(lambda: H.make_ctx(cfg, arrs))
-    stages["sync_states"], (p, c, z, n) = med(
-        lambda: H.sync_states(cfg, arrs, ctx))
-    stages["symbol_offsets"], n_off = med(
-        lambda: H.symbol_offsets(cfg, arrs, n))
-    stages["decode_write"], coeffs = med(
-        lambda: H.decode_write(cfg, arrs, ctx, p, c, z, n_off))
-    comp_slots = tuple((k[1], k[2] * k[3]) for k in sp.comps)
-    stages["undelta_dc_values"], dcv = med(
-        lambda: DC.undelta_dc_values(cfg, comp_slots, coeffs))
-    stages["idct_stream_to_planes (one launch)"], planes = med(
-        lambda: I.idct_stream_to_planes(coeffs, qtables, sp.idct_geometry,
-                                        cfg.du_per_mcu, dcv))
-    stages["copy out"], _ = med(
-        lambda: [pl.contiguous().cpu().numpy() for pl in planes])
-    for name, ms in stages.items():
-        log(f"stage {name}: {ms:.3f} ms  [{card}]")
-
-    # the records path's write and DC stages, from the same states
-    tplan = pipeline.build_plan(plan.stream, tuning=TILES)
+    ctx = H.make_ctx(cfg, arrs)
+    p, c, z, n = H.sync_states(cfg, arrs, ctx)
+    n_off = H.symbol_offsets(cfg, arrs, n)
+    # the records path's plan; its K4 records give the longest lane
+    tplan = pipeline.build_plan(stream, tuning=TILES)
     tcfg = tplan.signature.scans[0].cfg
-    pos0 = arrs.seg_of_subseq * tcfg.positions_per_seg + n_off
-    tiles = {}
-    tiles["decode_write_emit"], (rec, m) = med(
-        lambda: H.decode_write_emit(tcfg, arrs, ctx, p, c, z, n_off))
-    tiles["supertile_records (preparation)"], prep = med(
-        lambda: W.supertile_records(
-            rec, m, pos0 >> 6, pos0, tcfg.total_positions, tcfg.super_g,
-            tcfg.super_w, tcfg.tuning.s_trim, tcfg.group_du, tcfg.super_d))
-    val_rows, pk_rows, mmax_st, base, q, leftover, n_groups, win = prep
-    tiles["supertiles_from_records"], stiles = med(
-        lambda: W.supertiles_from_records(val_rows, pk_rows, mmax_st,
-                                          tcfg.super_g, tcfg.super_d))
-    tiles["expand_supertiles"], (rows, dcd) = med(
-        lambda: W.expand_supertiles(stiles, base, q, n_groups, win,
-                                    tcfg.group_du))
-    # adding the same records again on every repetition changes the sums,
-    # not the work
-    tiles["scatter_leftover"], _ = med(lambda: W.scatter_leftover(
-        rows.view(-1), rec, m, pos0, leftover, tcfg.total_positions,
-        s_trim=tcfg.tuning.s_trim, dc_flat=dcd))
-    tiles["decode_write_tiles (all of the above)"], (tcoeffs, tdc) = med(
-        lambda: W.decode_write_tiles(tcfg, arrs, ctx, p, c, z, n_off,
-                                     return_dc=True))
-    tiles["undelta_dc_values(dc=side vector)"], _ = med(
-        lambda: DC.undelta_dc_values(tcfg, comp_slots, dc=tdc))
-    for name, ms in tiles.items():
-        log(f"records path stage {name}: {ms:.3f} ms  [{card}]")
+    _, m = H.decode_write_emit(tcfg, arrs, ctx, p, c, z, n_off)
 
     times = profile_decode(
         dev, card, "default path",
@@ -3197,125 +3308,70 @@ def phase_sync_tiers_paths(dev: torch.device, data: bytes, expect, mesh):
     log(f"12 MP records write path under the ladder == golden; launches {rl}")
 
 
-def phase_multihost(dev: torch.device, card: str, images):
+def phase_multihost(dev: torch.device, card: str, images) -> None:
     """`parallel.weakscale` on the card: 1, then 2 processes (gloo, one
     CUDA context each on the one card), each decoding 2 of the batch's
     12 MP images through `MultiHostBatchDecoder`; every worker holds its
     planes against the SHA-256 of golden's, which this process writes
-    beside the JPEGs. Both runs start their processes alike, so that their
-    times compare. Any worker's failure or timeout fails the run."""
+    beside the JPEGs. Any worker's failure or timeout fails the run."""
     from jpeggpu_tpu_torch.parallel import weakscale
 
-    results = {}
     with tempfile.TemporaryDirectory(prefix="jpeggpu_mh_") as tmp:
         for k, (data, planes) in enumerate(images):
             pathlib.Path(tmp, f"{k}.jpg").write_bytes(data)
             pathlib.Path(tmp, f"{k}.sha256").write_text(
                 weakscale.planes_sha256(planes))
         for n in (1, 2):
-            t0 = time.perf_counter()
-            r = weakscale.launch(n, "2", iters=5, device="cuda",
-                                 data_dir=tmp, timeout=300)
-            wall = time.perf_counter() - t0
+            r = weakscale.launch(n, "2", device="cuda", data_dir=tmp,
+                                 timeout=300)
             lc = r["launches"]
             log(f"multi-process decode, {n} process(es) x 2 images on "
-                f"{dev.type}: {r['per_process_s'] * 1e3:.2f} ms per call "
-                f"(process 0, mean of 5 timed calls, host staging and "
-                f"copy-out included), planes == golden in every "
-                f"process; process 0's launches {lc}; {wall:.1f} s with "
-                f"start-up  [{card}]")
+                f"{dev.type}: planes == golden in every process; process "
+                f"0's launches {lc}  [{card}]")
             if not (lc["subseq_pass"] >= 2 and lc["decode_write"] == 1
                     and lc["idct_stream_to_planes"] == 1
                     and not lc["subseq_pass_at"]):
                 raise AssertionError(f"a process of the multi-process batch "
                                      f"must decode its 2 images as one merged "
                                      f"decode: {lc}")
-            results[n] = r
-    ratio = results[1]["per_process_s"] / results[2]["per_process_s"]
-    log(f"multi-process decode: t(1)/t(2) = {ratio:.3f}; the two processes "
-        f"share the one card's SMs by time-slicing, so this is no scaling "
-        f"result  [{card}]")
-    return {n: r["per_process_s"] * 1e3 for n, r in results.items()}
 
 
-# --- the bench --------------------------------------------------------------
+def phase_frame(dev: torch.device) -> None:
+    """The first frame of the `photo12mp.rst` cell (`benchmark.inputs`'
+    generator under the cell's parameters: 4032x3024, 4:2:0, quality 90,
+    RST every MCU row, noise stepping over bands of rows, PIL's libjpeg;
+    no two restart segments alike) on the paths that the cell bypasses,
+    each == golden of the whole frame: the default path, under
+    `Tuning(write_mode="auto")` (K2 launched, not K4), through the records
+    path (`tile_mode="auto"`) and with the device destuff."""
+    from benchmark.inputs import make_pool
+    from benchmark.run import load_cell
 
-BENCH_ITERS = 3  # few iterations: the phase shows each mode runs and holds
-
-
-def bench_kernel(kernels, name: str):
-    """(launches, ms) of the kernels whose name holds `name` in a bench
-    result's ``device_kernels``."""
-    hits = [v for k, v in kernels.items() if name in k]
-    return sum(v["launches"] for v in hits), sum(v["ms"] for v in hits)
-
-
-def phase_bench(dev: torch.device, card: str, seed: int):
-    """Each mode of `python -m jpeggpu_tpu_torch.bench` once at 12 MP with
-    `BENCH_ITERS` iterations (the images cached in `.bench_cache`), every
-    timed output held against golden by the bench's gate; then the
-    non-repeating full frame == golden on the default path, under
-    `Tuning(write_mode="auto")` (K2, not K4), through the records path
-    (`tile_mode="auto"`) and with the device destuff, and its sync rounds,
-    symbols per lane and K1 / K2 launches and ms beside the strip image's.
-    Prints the headline's JSON line and returns it."""
-    cache = BE.CACHE
-    head = BE.run_headline(dev, BENCH_ITERS, seed, FULL_W, FULL_H, cache)
-    print(json.dumps(head), flush=True)
-    log(f"bench headline: {head['value']:.1f} MP/s from bytes "
-        f"(vs_baseline {head['vs_baseline']:.3f}), device "
-        f"{BE.fmt_ms(head['latency_device_ms'])} ms, busy "
-        f"{BE.fmt_ms(head['device_busy_ms'])} ms, stream "
-        f"{head['stream_mps']:.1f} MP/s, batch of {head['batch_size']} {head['batch_mps']:.1f} MP/s; "
-        f"PIL {head['pil_cpu_mps']}, nvJPEG {head['nvjpeg_mps']} MP/s  "
-        f"[{card}]")
-    for run in (BE.run_single, BE.run_e2e, BE.run_batch):
-        r = run(dev, BENCH_ITERS, seed, FULL_W, FULL_H, cache)
-        log(f"bench {run.__name__}: {r['metric']} = {r['value']:.1f} "
-            f"{r['unit']}  [{card}]")
-    r = BE.run_all(dev, BENCH_ITERS, seed, cache)
-    log("bench run_all: " + ", ".join(
-        f"{k} {v['mps']:.1f} MP/s ({v['vs_ref_size']:.3f} of the "
-        f"reference's)" for k, v in r["sizes"].items()) + f"  [{card}]")
-    with tempfile.TemporaryDirectory(prefix="jpeggpu_bench_") as tmp:
-        r = BE.run_profile(dev, tmp, seed, FULL_W, FULL_H, cache)
-        if len(r["traces"]) != 1:
-            raise AssertionError(f"--profile wrote {r['traces']}")
-    log("bench run_profile: one trace of a decode from bytes and one from "
-        "staged inputs, outputs == golden")
-
-    frame = BE.frame_image(seed, FULL_W, FULL_H, cache=cache)
-    gate = BE.Gate(frame)
-    gate(T.decode(frame.data, device=dev))
-    auto = pipeline.build_plan(T.parse(frame.data),
+    _, params = load_cell("photo12mp.rst")
+    # the configuration fixes the frames' content (`content_seed`): the
+    # run's seed, here 0, only orders them
+    frame, = make_pool(dict(params, pool=1), 0, dev)
+    data = frame.data
+    expect = golden.decode(data)
+    check_equal_numpy("frame, default path", T.decode(data, device=dev),
+                      expect)
+    auto = pipeline.build_plan(T.parse(data),
                                tuning=T.Tuning(write_mode="auto"))
     planes, la, _ = counted(lambda: pipeline.decode_jpeg_device(
-        frame.data, device=dev, plan=auto))
-    gate(planes)
+        data, device=dev, plan=auto))
+    check_equal_numpy("frame, write_mode='auto'", planes, expect)
     if not (la["decode_write"] == 1 and la["decode_write_emit"] == 0):
         raise AssertionError(f"write_mode='auto' must run K2 and not K4: "
                              f"{la}")
-    gate(decode_tiles(frame.data, dev, AUTO))
+    check_equal_numpy("frame, records path",
+                      decode_tiles(data, dev, AUTO), expect)
     with T.Decoder(device=dev, host_destuff=False) as d:
-        d.parse_header(frame.data)
-        gate(d.decode())
-    log(f"{frame.name} (encoder {frame.encoder}, {len(frame.data)} bytes): "
-        f"decode == golden's SHA-256 on the default path, under "
+        d.parse_header(data)
+        check_equal_numpy("frame, device destuff", d.decode(), expect)
+    log(f"photo12mp.rst's frame ({frame.width}x{frame.height}, {len(data)} "
+        f"bytes): decode == golden on the default path, under "
         f"Tuning(write_mode='auto') (launches {la}), through the records "
         f"path (tile_mode='auto') and with the device destuff")
-    for label, fields in (("strip image", head),
-                          ("full frame", head["frame"])):
-        k1 = bench_kernel(fields["device_kernels"], "subseq_pass_kernel")
-        k2 = bench_kernel(fields["device_kernels"], "decode_write_kernel")
-        log(f"{label} ({fields['image']}): {fields['sync_rounds']} sync "
-            f"rounds (K1 x{k1[0]}, {k1[1]:.4f} ms), K2 x{k2[0]} "
-            f"{k2[1]:.4f} ms; {fields['lanes']} lanes, {fields['symbols']} "
-            f"symbols, per lane at most {fields['symbols_per_lane_max']}, "
-            f"median {fields['symbols_per_lane_median']}; from bytes "
-            f"{fields['latency_from_bytes_ms']:.2f} ms, device "
-            f"{BE.fmt_ms(fields['latency_device_ms'])} ms, busy "
-            f"{BE.fmt_ms(fields['device_busy_ms'])} ms  [{card}]")
-    return head
 
 
 def timed(fn, *args, **kwargs):
@@ -3437,10 +3493,10 @@ def main() -> int:
      route_errs) = timed(phase_batch_routes, dev, card, datas, sparse_datas,
                          merged_state[3])
     batch_errs = worst(merged_state[6], route_errs)
-    multihost_ms = timed(phase_multihost, dev, card, [(data, expect)] + [
+    timed(phase_multihost, dev, card, [(data, expect)] + [
         (datas[k], tiled_golden(make_image(args.seed + k, QUALITY)[0], FULL_H))
         for k in range(1, 4)])
-    timed(phase_bench, dev, card, args.seed)
+    timed(phase_frame, dev)
     for e in entries:
         key = f"::{e['name']}_kernel"
         if key in btimes:
@@ -3501,12 +3557,11 @@ def main() -> int:
         sync_tiers={label: {shape: {k: v for k, v in r.items()
                                     if k != "gathered"}
                             for shape, r in shapes.items()}
-                    for label, shapes in tiers.items()},
-        multi_process_ms_per_call=multihost_ms)
+                    for label, shapes in tiers.items()})
 
     log(f"profiler windows taken again for lost device events: "
-        f"{BE.windows_lost}; most opening markers lost in a window that "
-        f"counted: {BE.markers_lost_max}")
+        f"{windows_lost}; most opening markers lost in a window that "
+        f"counted: {markers_lost_max}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     log(smi("name,power.limit"))

@@ -1,26 +1,23 @@
-"""Weak-scaling harness of the multi-process decode.
+"""Launcher of the multi-process decode.
 
     python -m jpeggpu_tpu_torch.parallel.weakscale [--nproc 1 2 4]
-        [--imgs 4] [--iters 5] [--size 136] [--device cuda|cpu]
-        [--out FILE]
+        [--imgs 4] [--size 136] [--device cuda|cpu]
 
-The port of ``scripts/weakscale.py``. Starts N processes on this machine,
-wires them with ``torch.distributed`` (gloo, a ``file://`` rendezvous in a
-temporary directory), and runs :class:`~jpeggpu_tpu_torch.parallel.
-multihost.MultiHostBatchDecoder` with a fixed per-process workload: each
-process makes ``--imgs`` images (a comma list gives process k the k-th
-count, mixed counts) of one geometry from a numpy seed, checks its planes
-against the port's golden decoder, then times ``--iters`` decodes.
-Process 0's result also carries the kernel wrappers' launch counts of its
-first decode (0 on the CPU, where the plain versions run).
-Weak-scaling efficiency = t(1 process) / t(N processes) for the same
-per-process work. The default, ``--device cuda``, puts every process on
-card ``rank % device_count`` and raises where there is no CUDA device;
-``--device cpu`` runs the plain versions, one thread per worker. Prints
-one JSON list of ``{nproc, per_process_s, imgs_per_process,
-weak_scaling_efficiency}`` and, with ``--out``, writes the table there; a
-worker that fails or runs past its time limit makes the exit code
-non-zero.
+The port of ``scripts/weakscale.py``, without its timing. Starts N
+processes on this machine, wires them with ``torch.distributed`` (gloo, a
+``file://`` rendezvous in a temporary directory), and runs
+:class:`~jpeggpu_tpu_torch.parallel.multihost.MultiHostBatchDecoder` with
+a fixed per-process workload: each process makes ``--imgs`` images (a
+comma list gives process k the k-th count, mixed counts) of one geometry
+from a numpy seed, decodes them once and checks its planes against the
+port's golden decoder. Process 0's result carries the kernel wrappers'
+launch counts of that decode (0 on the CPU, where the plain versions run).
+The default, ``--device cuda``, puts every process on card ``rank %
+device_count`` and raises where there is no CUDA device; ``--device cpu``
+runs the plain versions, one thread per worker. Prints one JSON list of
+process 0's results, ``{nproc, imgs_per_process, counts, launches}`` for
+each N; a worker that fails or runs past its time limit makes the exit
+code non-zero.
 
 :func:`launch` also takes a directory of prepared images in place of the
 generated ones: ``{k}.jpg`` with the SHA-256 of its expected planes in
@@ -101,7 +98,7 @@ def worker() -> int:
     env = os.environ
     nproc, pid = int(env["WS_NPROC"]), int(env["WS_PID"])
     imgs = _counts(env["WS_IMGS"], nproc)[pid]
-    iters, device = int(env["WS_ITERS"]), env["WS_DEVICE"]
+    device = env["WS_DEVICE"]
     if device == "cpu":
         torch.set_num_threads(1)
         devices = ["cpu"]
@@ -125,7 +122,7 @@ def worker() -> int:
         dec = multihost.MultiHostBatchDecoder(mesh=make_mesh(devices))
         for fn in _wrappers():
             fn.launches = 0
-        out = dec.decode(datas)  # warm-up: builds the kernels, if any
+        out = dec.decode(datas)
         launches = {fn.__name__: fn.launches for fn in _wrappers()}
         assert len(out) == imgs
         for planes, want in zip(out, expect):
@@ -133,13 +130,8 @@ def worker() -> int:
                 raise AssertionError(
                     f"process {pid}: multi-process decode differs from the "
                     f"expected planes")
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            dec.decode(datas)
-        dt = (time.perf_counter() - t0) / iters
         if pid == 0:
-            print(json.dumps({"nproc": nproc, "per_process_s": dt,
-                              "imgs_per_process": imgs,
+            print(json.dumps({"nproc": nproc, "imgs_per_process": imgs,
                               "counts": list(dec.counts),
                               "launches": launches}), flush=True)
     finally:
@@ -147,7 +139,7 @@ def worker() -> int:
     return 0
 
 
-def launch(nproc: int, imgs="4", iters: int = 5, size: int = 136,
+def launch(nproc: int, imgs="4", size: int = 136,
            device: str = "cuda", data_dir: Optional[str] = None,
            timeout: float = WORKER_TIMEOUT_S) -> dict:
     """Run one configuration of N processes; returns process 0's result.
@@ -170,7 +162,7 @@ def launch(nproc: int, imgs="4", iters: int = 5, size: int = 136,
                 env.update({
                     _WORKER_FLAG: "1", "WS_NPROC": str(nproc),
                     "WS_PID": str(pid), "WS_IMGS": str(imgs),
-                    "WS_ITERS": str(iters), "WS_SIZE": str(size),
+                    "WS_SIZE": str(size),
                     "WS_DEVICE": device,
                     "WS_INIT": f"file://{os.path.join(tmp, 'rendezvous')}",
                     "PYTHONPATH": os.pathsep.join(
@@ -223,32 +215,12 @@ def main(argv=None) -> int:
     ap.add_argument("--nproc", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--imgs", default="4",
                     help="images per process, or a comma list by process")
-    ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--size", type=int, default=136)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    results = []
-    for n in args.nproc:
-        r = launch(n, args.imgs, args.iters, args.size, args.device)
-        results.append(r)
-        print(f"nproc={n}: {r['per_process_s'] * 1e3:.1f} ms/iter "
-              f"({args.imgs} imgs/process, {args.device})", file=sys.stderr,
-              flush=True)
-    base = results[0]["per_process_s"]
-    rows = [{"nproc": r["nproc"], "per_process_s": r["per_process_s"],
-             "imgs_per_process": r["imgs_per_process"],
-             "weak_scaling_efficiency": base / r["per_process_s"]}
-            for r in results]
-    if args.out:
-        table = {"harness": "multi-process on one machine, torch.distributed "
-                            "(gloo)",
-                 "device": args.device, "imgs_per_process": args.imgs,
-                 "image_width": args.size, "iters": args.iters,
-                 "results": rows}
-        with open(args.out, "w") as f:
-            json.dump(table, f, indent=1)
-    print(json.dumps(rows), flush=True)
+    results = [launch(n, args.imgs, args.size, args.device)
+               for n in args.nproc]
+    print(json.dumps(results), flush=True)
     return 0
 
 

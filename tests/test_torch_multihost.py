@@ -1,5 +1,5 @@
 """PyTorch port, the multi-process decode (``parallel/multihost.py``) and
-its weak-scaling harness (``parallel/weakscale.py``) on the CPU: gloo
+its launcher (``parallel/weakscale.py``) on the CPU: gloo
 process groups with a ``file://`` rendezvous in a temporary directory, so
 that runs in parallel never meet on a port. Every worker checks its planes
 against the port's golden decoder itself (bit-exact, ``np.array_equal`` of
@@ -24,17 +24,16 @@ TIMEOUT_S = 180
 
 
 def test_two_processes_two_images():
-    r = weakscale.launch(2, "2", iters=1, device="cpu",
-                         timeout=TIMEOUT_S)
+    r = weakscale.launch(2, "2", device="cpu", timeout=TIMEOUT_S)
+    assert set(r) == {"nproc", "imgs_per_process", "counts", "launches"}
     assert r["nproc"] == 2 and r["imgs_per_process"] == 2
-    assert r["counts"] == [2, 2] and r["per_process_s"] > 0
+    assert r["counts"] == [2, 2]
 
 
 def test_four_processes_mixed_counts():
     """Counts 1, 2, 2, 3: no process pads its batch, and each decodes
     exactly its own images (checked against golden in every worker)."""
-    r = weakscale.launch(4, "1,2,2,3", iters=1, device="cpu",
-                         timeout=TIMEOUT_S)
+    r = weakscale.launch(4, "1,2,2,3", device="cpu", timeout=TIMEOUT_S)
     assert r["nproc"] == 4 and r["counts"] == [1, 2, 2, 3]
 
 
@@ -113,22 +112,19 @@ def test_no_devices_named_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         multihost.MultiHostBatchDecoder()
     with pytest.raises(RuntimeError, match="CUDA"):
-        weakscale.launch(1, "1", iters=1)
+        weakscale.launch(1, "1")
 
 
-def test_weakscale_cli(tmp_path):
-    out = tmp_path / "weakscale.json"
+def test_weakscale_cli():
+    """One JSON list on stdout: process 0's result for each N."""
     res = subprocess.run(
         [sys.executable, "-m", "jpeggpu_tpu_torch.parallel.weakscale",
-         "--nproc", "1", "2", "--imgs", "2", "--iters", "1", "--device",
-         "cpu", "--out", str(out)],
+         "--nproc", "1", "2", "--imgs", "2", "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=TIMEOUT_S)
     assert res.returncode == 0, res.stderr[-2000:]
-    table = json.loads(out.read_text())
-    assert [r["nproc"] for r in table["results"]] == [1, 2]
-    for r in table["results"]:
-        assert set(r) == {"nproc", "per_process_s", "imgs_per_process",
-                          "weak_scaling_efficiency"}
-        assert r["per_process_s"] > 0 and r["imgs_per_process"] == 2
-    assert table["results"][0]["weak_scaling_efficiency"] == 1.0
-    assert json.loads(res.stdout.splitlines()[-1]) == table["results"]
+    rows = json.loads(res.stdout.splitlines()[-1])
+    assert [r["nproc"] for r in rows] == [1, 2]
+    assert [r["counts"] for r in rows] == [[2], [2, 2]]
+    for r in rows:
+        assert set(r) == {"nproc", "imgs_per_process", "counts", "launches"}
+        assert r["imgs_per_process"] == 2

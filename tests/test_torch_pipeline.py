@@ -358,49 +358,3 @@ def test_wrappers_refuse_other_devices(data_420_rst2):
     # the one-component and one-plane calls launch through these two
     assert tidct.idct_stream_to_planes.launches == 0
     assert tidct.dequant_idct_planes.launches == 0
-
-
-@pytest.fixture(scope="module")
-def chip_smoke():
-    """chip_smoke.py as a module (it runs only on a CUDA device; its image
-    and symbol-count helpers are plain numpy / torch)."""
-    import importlib.util
-    import pathlib
-
-    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def test_chip_smoke_repeat_strip(chip_smoke):
-    """A strip whose restart interval is one MCU row, repeated to a taller
-    image: a valid JPEG whose planes are the strip's rows in turn."""
-    img = chip_smoke.synthetic_image(32, 48, seed=7)
-    strip = encode(img, EncodeSpec(sampling=_S420, restart_interval=3,
-                                   quality=90))
-    tall = chip_smoke.repeat_strip(strip, 160)  # 10 MCU rows from 2
-    assert T.parse(tall).size_y == 160
-    rows = T.decode(strip, device="cpu")
-    planes = T.decode(tall, device="cpu")
-    for a, b in zip(golden.decode(tall), planes):
-        assert np.array_equal(a, b)
-    for r, p in zip(rows, planes):
-        assert np.array_equal(np.tile(r, (5, 1)), p)
-
-
-def test_chip_smoke_count_symbols(chip_smoke):
-    """Hand-made data units: DC + EOB; a lone coefficient at zigzag 63
-    (three ZRL, no EOB); coefficients at zigzag 1 and 18 (one ZRL, EOB)."""
-    from jpeggpu_tpu_torch import constants as C
-
-    blocks = torch.zeros(3, 64, dtype=torch.int16)
-    blocks[0, 0] = 5
-    blocks[1, C.ORDER_NATURAL[63]] = -1
-    blocks[2, C.ORDER_NATURAL[1]] = 2
-    blocks[2, C.ORDER_NATURAL[18]] = 3
-    assert chip_smoke.count_symbols(blocks[:1].reshape(-1)) == 2
-    assert chip_smoke.count_symbols(blocks[1:2].reshape(-1)) == 5
-    assert chip_smoke.count_symbols(blocks[2:].reshape(-1)) == 5
-    assert chip_smoke.count_symbols(blocks.reshape(-1)) == 12
