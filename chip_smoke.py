@@ -93,8 +93,9 @@ line) on the first phase that fails; nothing is caught and carried past:
    again with more opening markers and the host idle longer at both ends,
    up to four windows, and then fails the run; the number taken again is
    logged at the end. Also end-to-end ms and MP/s with and without host
-   staging, and one `reader.parse`, whose every scan must take the native
-   segment walk (`reader.walks`);
+   staging, and one `reader.parse`, which must take the native header pass
+   (`reader.parses`) and whose every scan the native segment walk
+   (`reader.walks`);
 6b. the batch path (`parallel/batch.py`): eight 12 MP images at quality
    90 (seeds seed .. seed+7) through `BatchDecoder(device=dev).decode`, one
    merged group at 8 x lanes: K1 held against its plain version on a round
@@ -153,7 +154,8 @@ line) on the first phase that fails; nothing is caught and carried past:
    two restart segments repeat) == golden on the paths the cell bypasses:
    the default path, under `Tuning(write_mode="auto")` (K2 launched, not
    K4), through the records path (`tile_mode="auto"`) and with the device
-   destuff;
+   destuff; its `reader.parse`, which must take the native header pass,
+   timed on the card's host (median of 20);
 6h. the host staging (`staging.py`): at 12 MP the pinned staging
    region's device views torch.equal to one pageable copy per array, in
    two copies; a transfer whose copy waits behind device work, then the
@@ -1407,12 +1409,16 @@ def phase_where_time_goes(dev: torch.device, data: bytes, card: str,
     per-launch times inside the default path's decode, and the records
     path's per-launch times of its kernels inside the decode by kernel
     symbol."""
-    walks = dict(reader.walks)
+    walks, parses = dict(reader.walks), dict(reader.parses)
     stream = T.parse(data)
     took = {k: reader.walks[k] - walks[k] for k in walks}
     if took != {"native": len(stream.scans), "numpy": 0}:
         raise AssertionError(f"the 12 MP parse took the walks {took}, not "
                              "the native one on every scan")
+    took = {k: reader.parses[k] - parses[k] for k in parses}
+    if took != {"native": 1, "python": 0}:
+        raise AssertionError(f"the 12 MP parse took the parsers {took}, not "
+                             "the native header pass")
     plan = pipeline.build_plan(stream)
     staged = pipeline.stage_inputs(pipeline.build_inputs(data, plan), plan,
                                    dev)
@@ -3368,10 +3374,22 @@ def phase_frame(dev: torch.device) -> None:
     with T.Decoder(device=dev, host_destuff=False) as d:
         d.parse_header(data)
         check_equal_numpy("frame, device destuff", d.decode(), expect)
+    parses = dict(reader.parses)
+    parse_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        reader.parse(data)
+        parse_ms.append((time.perf_counter() - t0) * 1e3)
+    took = {k: reader.parses[k] - parses[k] for k in parses}
+    if took != {"native": 20, "python": 0}:
+        raise AssertionError(f"the frame's parses took the parsers {took}, "
+                             "not the native header pass")
     log(f"photo12mp.rst's frame ({frame.width}x{frame.height}, {len(data)} "
         f"bytes): decode == golden on the default path, under "
         f"Tuning(write_mode='auto') (launches {la}), through the records "
-        f"path (tile_mode='auto') and with the device destuff")
+        f"path (tile_mode='auto') and with the device destuff; its "
+        f"reader.parse (native header pass) {statistics.median(parse_ms):.3f} "
+        f"ms median of 20 on the card's host")
 
 
 def timed(fn, *args, **kwargs):
