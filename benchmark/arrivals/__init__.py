@@ -33,6 +33,7 @@ class Window:
         """`req`, sent at `sent`, answered with `outs` at `done`."""
         self.attempted += len(req.datas)
         self.rec.latencies.append(done - sent)
+        self.rec.images += len(req.datas)
         self.rec.pixels += req.pixels
         for key, planes in zip(req.keys, outs):
             self.sample.offer(key, planes)

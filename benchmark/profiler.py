@@ -11,6 +11,12 @@ ends (``TRIES``), and fails where no window counts.
 :func:`profiled` returns the window's device work (kernels and copies,
 markers left out), the host's ``jpeggpu.*`` and ``bench.*`` ranges, and
 the run's wall time on the host clock.
+
+:class:`DeviceWindow` records the card's work over a whole measured window
+(kernels and copies only, no host ranges), for an end-to-end metric whose
+source is the device trace; it reads the profiler's raw events, since a
+window of some hundred thousand launches is too many to parse into
+Python's event objects.
 """
 
 from __future__ import annotations
@@ -95,6 +101,57 @@ def profiled(dev, run: Callable[[], None]) -> Window:
               f"run seen", file=sys.stderr, flush=True)
     raise RuntimeError(f"the profiler saw no whole window of device work "
                        f"in {len(TRIES)} tries")
+
+
+class DeviceWindow:
+    """The card's kernels and copies while the block runs: ``device``
+    (as :class:`Window`'s, markers left out), or None where the trace lost
+    events, at its start (the first event seen is not one of the markers
+    that open it) or its end (the closing marker is missing).
+
+    Entered before the measured window opens and left once its last
+    answer came, so that the profiler's start and the marker launches
+    fall outside the window's clock."""
+
+    LEAD = 256
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.device = None
+        self.events = 0
+        self._prof = None
+
+    def __enter__(self) -> "DeviceWindow":
+        from torch.profiler import ProfilerActivity, profile
+
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        time.sleep(0.01)
+        for _ in range(self.LEAD):
+            _marker(self.dev)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        import torch
+        from torch.autograd import DeviceType
+
+        torch.cuda.synchronize(self.dev)
+        _marker(self.dev)
+        time.sleep(0.01)
+        self._prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        card = sorted(
+            (e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+            for e in self._prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation())
+        self._prof = None
+        self.events = len(card)
+        if card and MARKER in card[0][2] and MARKER in card[-1][2]:
+            self.device = [(kernel_name(n), a, b) for a, b, n in card
+                           if MARKER not in n]
+        return False
 
 
 def kernel_name(name: str) -> str:

@@ -2,12 +2,14 @@
 
 A :class:`Records` holds the spans and counters of the measured window
 (taken by the benchmark around its calls into the port, and from the
-port's own counters) and, in a traced run, the profiler window
-(:mod:`benchmark.profiler`) with the images it decoded. Each per-layer
-metric is a file ``layers/<name>.py`` and each end-to-end metric a file
-``end_to_end/<name>.py``, found by the name in ``BENCHMARK.json``; each
-defines ``read(rec)``, which returns a number, or None where the run gave
-it nothing to read (the metric is then left out of the line).
+port's own counters), the card's work over the whole window where an
+end-to-end metric of the cell reads the device trace, and, in a traced run,
+the profiler window (:mod:`benchmark.profiler`) with the images it
+decoded. Each per-layer metric is a file ``layers/<name>.py`` and each
+end-to-end metric a file ``end_to_end/<name>.py``, found by the name in
+``BENCHMARK.json``; each defines ``read(rec)``, which returns a number, or
+None where the run gave it nothing to read (the metric is then left out of
+the line).
 """
 
 from __future__ import annotations
@@ -31,9 +33,13 @@ class Records:
     # the measured window
     latencies: List[float] = dataclasses.field(default_factory=list)
     batch: int = 1
+    images: int = 0
     pixels: int = 0
     window_s: float = 0.0
     setup_s: float = 0.0
+    # the card's work over the whole measured window, where an end-to-end
+    # metric of the cell reads it (a profiler.Window with no host ranges)
+    window_trace: Optional[object] = None
     # the traced window, where there is one
     trace: Optional[object] = None  # profiler.Window
     traced_inputs: Sequence[bytes] = ()

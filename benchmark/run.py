@@ -10,8 +10,10 @@ arrival process sends them (``arrivals/<arrivals>.py``, a closed loop of
 one client by default) through the loop it names (``loops/<loop>.py``).
 With ``--trace 1`` it also serves ``trace_requests`` more requests in a
 profiler window and reports the per-layer metrics instead of the
-end-to-end ones. Once the window has closed, the images it kept
-(``sample``) are held against the reference (:mod:`benchmark.check`).
+end-to-end ones; without it, where an end-to-end metric of the cell reads
+the device trace, the card's work over the whole window is recorded. Once
+the window has closed, the images it kept (``sample``) are held against the
+reference (:mod:`benchmark.check`).
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
@@ -28,6 +30,7 @@ import time
 START = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import pathlib  # noqa: E402
@@ -68,6 +71,14 @@ def load_cell(name: str, bench: Optional[Dict] = None) -> Tuple[Dict, Dict]:
 def metric_names(bench: Dict, kind: str, cell: str) -> List[str]:
     return [m["name"] for m in bench[kind]
             if cell in m.get("workloads", [cell])]
+
+
+def window_traced(bench: Dict, cell: str) -> bool:
+    """Whether an end-to-end metric of `cell` reads the device trace, so
+    that its untraced runs record the card's work over the whole window."""
+    names = metric_names(bench, "end_to_end", cell)
+    return any(m["source"] == "device_trace" for m in bench["end_to_end"]
+               if m["name"] in names)
 
 
 def _load_loop(name: str):
@@ -132,16 +143,33 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
         held = torch.cuda.memory_allocated(device) - held
         torch.cuda.reset_peak_memory_stats(device)
 
-    # the measured window, driven by the mix's arrival process
+    # the measured window, driven by the mix's arrival process; where an
+    # end-to-end metric of the cell reads the device trace, the card's
+    # work over the whole window is recorded (not in a traced run, which
+    # reports the per-layer metrics)
     stream = Stream(pool, params, seed, sub=0, rows=rows)
     drive = arrivals.load(params.get("arrivals", "closed"))
-    t_open = time.perf_counter()
-    rec.setup_s = t_open - start
-    window = arrivals.Window(stream, loop, rec, sample, t_open + seconds,
-                             params)
-    cpu_open, faults_open = time.process_time(), _minor_faults()
-    t_end = drive(window)
+    whole = cuda and not trace and window_traced(bench, cell_name)
+    on_card = (profiler.DeviceWindow(device) if whole
+               else contextlib.nullcontext())
+    with on_card:
+        if whole:
+            stage("the card's trace of the window started")
+        t_open = time.perf_counter()
+        rec.setup_s = t_open - start
+        window = arrivals.Window(stream, loop, rec, sample,
+                                 t_open + seconds, params)
+        cpu_open, faults_open = time.process_time(), _minor_faults()
+        t_end = drive(window)
     rec.window_s = t_end - t_open
+    if whole:
+        rec.window_trace = (None if on_card.device is None else
+                            profiler.Window(device=on_card.device, ranges=[],
+                                            wall_s=rec.window_s, lost=0))
+        log(f"{cell_name}: the window's device trace: {on_card.events} "
+            f"events, " + ("whole" if on_card.device is not None else
+                           "events lost, no device metric") +
+            f", read by {time.perf_counter() - start:.2f} s")
     attempted, failed = window.attempted, window.failed
     log(f"{cell_name}: window {rec.window_s:.3f} s, {len(rec.latencies)} "
         f"requests, {attempted} images, {failed} failed, "

@@ -33,23 +33,6 @@ LATER = {
          "bound": 0.25, "source": "host_clock",
          "workloads": ["photo12mp.rst"]},
     ],
-    "per_layer": [
-        {"name": name, "unit": unit, "better": better, "source": source,
-         "layer": layer, "moves": moves, "workloads": ["photo12mp.rst"]}
-        for name, unit, better, source, layer, moves in [
-            ("parse_ms", "ms", "lower", "program_span", "reader", "mps"),
-            ("transfer_ms", "ms", "lower", "program_span", "host staging",
-             "mps"),
-            ("decode_ms", "ms", "lower", "program_span", "decode",
-             "image_p95_ms"),
-            ("sync_rounds", "rounds", "lower", "program_counter", "sync",
-             "image_p95_ms"),
-            ("write_roofline", "%", "higher", "device_trace", "kernels",
-             "mps"),
-            ("tail_roofline", "%", "higher", "device_trace", "kernels",
-             "mps"),
-        ]
-    ],
 }
 CELLS = ("photo12mp.rst", "imagenet_loader.b32", "imagenet_loader.single",
          "photo12mp.norst")

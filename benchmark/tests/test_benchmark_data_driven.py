@@ -70,7 +70,7 @@ def test_added_files_make_a_cell(tmp_path):
                                 "workloads": ["thumbs.tiny"]})
     bench["per_layer"].append({"name": "images_seen", "unit": "images",
                                "better": "higher", "source": "program_span",
-                               "layer": "decode", "moves": "mps",
+                               "layer": "decode", "moves": "median_ms",
                                "workloads": ["thumbs.tiny"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     code = (
@@ -92,7 +92,7 @@ def test_added_files_make_a_cell(tmp_path):
     e2e, traced = out["False"], out["True"]
     assert e2e["correct"] and traced["correct"]
     # every metric with no `workloads` key, and those that list the cell
-    assert set(e2e["metrics"]) == {"mps", "median_ms", "setup_s"}
+    assert set(e2e["metrics"]) == {"median_ms", "setup_s"}
     assert traced["metrics"]["images_seen"]["value"] >= 1
     assert traced["metrics"]["images_seen"]["value"] == traced["attempted"]
     after = digest(tmp_path)

@@ -34,7 +34,10 @@ def test_sound_run_is_correct(cell):
     assert list(result)[:5] == KEYS and list(result)[-1] == "checks"
     assert result["correct"] is True
     assert result["failed"] == 0 and result["attempted"] >= 1
-    want = set(run.metric_names(bench(), "end_to_end", cell))
+    # the card's trace of the window needs the card
+    on_card = {m["name"] for m in bench()["end_to_end"]
+               if m["source"] == "device_trace"}
+    want = set(run.metric_names(bench(), "end_to_end", cell)) - on_card
     assert set(result["metrics"]) == want
     assert all(m["value"] > 0 for m in result["metrics"].values())
     assert set(result["device"]) >= {"platform", "kind", "count",
@@ -50,7 +53,7 @@ def test_traced_run_reports_host_layers(cell):
     assert result["correct"] is True
     names = set(run.metric_names(bench(), "per_layer", cell))
     # the device's numbers need the card; the host's spans are read here
-    host = {"parse_ms", "transfer_ms", "decode_ms", "merged_share"} & names
+    host = {"served_mps", "merged_share"} & names
     assert host and host <= set(result["metrics"]) <= names
 
 
@@ -192,6 +195,56 @@ def test_run_without_a_card_prints_no_result():
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert p.returncode != 0
     assert p.stdout.strip() == ""
+
+
+def test_window_traced_where_an_end_to_end_metric_reads_the_card():
+    assert run.window_traced(bench(), "photo12mp.rst")
+    assert not run.window_traced(bench(), "imagenet_loader.b32")
+
+
+def test_device_ms_is_the_windows_busy_time_per_image():
+    from benchmark.profiler import Window
+    from benchmark.records import Records, load_reader
+
+    read = load_reader("end_to_end", "device_ms")
+    rec = Records()
+    assert read(rec) is None
+    rec.window_trace = Window(
+        device=[("k1", 0.0, 1_000.0), ("k2", 500.0, 1_500.0),
+                ("Memcpy HtoD", 3_000.0, 4_000.0)],
+        ranges=[], wall_s=1.0, lost=0)
+    assert read(rec) is None  # no image answered
+    rec.images = 4
+    # busy 1500 + 1000 us over 4 images
+    assert read(rec) == pytest.approx(2.5 / 4)
+
+
+def test_served_mps_reads_as_mps():
+    from benchmark.records import Records, load_reader
+
+    rec = Records(pixels=12_000_000, window_s=2.0)
+    assert load_reader("layers", "served_mps")(rec) == pytest.approx(6.0)
+    assert (load_reader("layers", "served_mps")(rec)
+            == load_reader("end_to_end", "mps")(rec))
+
+
+@pytest.mark.card
+def test_device_window_holds_the_windows_work():
+    from benchmark import profiler
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    x = torch.ones(1 << 20, device=dev)
+    with profiler.DeviceWindow(dev) as win:
+        for _ in range(1000):
+            x.mul_(1.0)
+    assert win.device is not None
+    assert len(win.device) == 1000 and win.events >= 1002
+    assert all(profiler.MARKER not in name for name, _, _ in win.device)
+    whole = profiler.Window(device=win.device, ranges=[], wall_s=1.0,
+                            lost=0)
+    assert 0 < profiler.busy_s(whole) < 1.0
 
 
 @pytest.mark.card

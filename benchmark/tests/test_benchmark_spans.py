@@ -71,14 +71,35 @@ def test_span_metrics_per_traced_image():
     # inputs 1000, merge 200, copy_in 1000 - 400 + symtab 400
     assert read("staging_self_ms", rec) == pytest.approx(2.2 / 4)
     assert read("sync_read_ms", rec) == pytest.approx(0.8 / 4)
+    # the sync's 2000 us less its two reads
+    assert read("sync_host_ms", rec) == pytest.approx(1.2 / 4)
     assert read("tail_ms", rec) == pytest.approx(2.0 / 4)
     assert read("to_host_ms", rec) == pytest.approx(2.0 / 4)
     assert read("tail_ms", record(ranges, images=1)) == pytest.approx(2.0)
 
 
-@pytest.mark.parametrize("name", SPAN_METRICS + ["idle_named_share"])
+@pytest.mark.parametrize("name", SPAN_METRICS + ["sync_host_ms",
+                                                  "idle_named_share"])
 def test_no_trace_reads_none(name):
     assert read(name, Records()) is None
+
+
+def test_sync_host_ms_without_a_sync_range_is_none():
+    ranges = [("bench.batch", 0.0, 1_000.0),
+              ("jpeggpu.sync.read", 10.0, 20.0),
+              ("jpeggpu.write.fused", 50.0, 60.0)]
+    assert read("sync_host_ms", record(ranges)) is None
+
+
+def test_sync_host_ms_reads_the_decode_stages_sync():
+    """A program without the spans of its host path still has the sync's
+    range, a decode stage's: its self time is the sync's host work."""
+    ranges = [("jpeggpu.sync", 10.0, 50.0),
+              ("jpeggpu.sync.read", 20.0, 25.0),
+              ("jpeggpu.sync.read", 40.0, 60.0),  # over the sync's end
+              ("jpeggpu.write.fused", 50.0, 60.0)]
+    assert read("sync_host_ms", record(ranges, images=2)) == pytest.approx(
+        (40.0 - 5.0 - 10.0) / 1e3 / 2)
 
 
 @pytest.mark.parametrize("name", SPAN_METRICS)
